@@ -1,12 +1,12 @@
 // tpu_llm native host library.
 //
-// TPU-native counterpart of the reference's compiled-language layer
+// Counterpart of the reference's compiled-language layer
 // (SURVEY.md §2.2): where llm.f90 stubs C helpers for f16<->f32 conversion
 // and 4-bit pack/unpack (load.f90:124-152) and calls a C SIMD dot on its
 // optimize16 branch, this library does the HOST-side heavy lifting of the
-// TPU pipeline — checkpoint-load-time block repacking into the device
+// pipeline — checkpoint-load-time block repacking into the device
 // layout, f16 widening, and the greedy score-merge BPE encoder. The
-// device-side compute equivalents are the Pallas kernels.
+// device-side compute runs in JAX.
 //
 // Build: make native   (g++ -O3 -march=native -shared -fPIC)
 // ABI: plain C, loaded via ctypes (tpu_llm/native/__init__.py).
@@ -55,7 +55,7 @@ void f16_to_f32(const uint16_t* in, float* out, int64_t n) {
   for (int64_t i = 0; i < n; ++i) out[i] = half_bits_to_float(in[i]);
 }
 
-// ---- GGML block repacking into the TPU QTensor layout ------------------
+// ---- GGML block repacking into the device QTensor layout ---------------
 // q4_0 on disk: per (row, block): [f16 d][16 bytes, nibble pair (j, j+16)]
 // device layout: q (row_len/2, rows) byte-transposed block-local pairs;
 //                scales (row_len/32, rows) f32.

@@ -147,29 +147,32 @@ def test_quantkv_is_donatable_pytree():
     assert isinstance(back, QuantKV)
 
 
-def test_flash_prefill_over_dequantized_int8_matches_einsum():
-    """The int8-prefill flash route (models/llama._attend): dequantize the
-    QuantKV cache once to bf16 and run the flash kernel — must match the
-    direct int8 einsum attention within bf16 tolerance."""
-    from tpu_llm.ops.flash_attention import flash_gqa_attention
-
+def _int8_prompt_cache(flat: bool, B=1, T=32, S=48, H=8, Hkv=2, D=16):
     rng = np.random.default_rng(9)
-    B, T, S, H, Hkv, D = 1, 32, 32, 8, 2, 16
-    q = jnp.asarray(rng.standard_normal((B, T, H, D)), jnp.float32)
+    q = jnp.asarray(rng.standard_normal((B, T, H, D)), jnp.bfloat16)
     k = jnp.asarray(rng.standard_normal((B, T, Hkv, D)), jnp.float32)
     v = jnp.asarray(rng.standard_normal((B, T, Hkv, D)), jnp.float32)
-    kc, vc = QuantKV.zeros((B, S, Hkv, D), flat=True), QuantKV.zeros(
-        (B, S, Hkv, D), flat=True)
+    kc = QuantKV.zeros((B, S, Hkv, D), flat=flat)
+    vc = QuantKV.zeros((B, S, Hkv, D), flat=flat)
     kc, vc = update_kv_cache(kc, vc, k, v, jnp.int32(0))
-    positions = jnp.arange(T, dtype=jnp.int32)
-    expected = gqa_attention(q, kc, vc, positions)
+    return q, kc, vc
 
-    kd = dequantize_kv(kc, jnp.bfloat16, head_dim=D)
-    vd = dequantize_kv(vc, jnp.bfloat16, head_dim=D)
-    got = flash_gqa_attention(
-        q.astype(jnp.bfloat16), kd, vd, jnp.int32(0),
-        block_q=16, block_k=16, interpret=True,
-    )
-    np.testing.assert_allclose(
-        np.asarray(got, np.float32), np.asarray(expected), rtol=0.05, atol=0.05
-    )
+
+def test_flash_prefill_over_dequantized_int8_matches_einsum():
+    """The int8-prefill flash route (kernels.attention.prefill_attention
+    over a QuantKV cache, as models/llama._attend takes it): the prompt's
+    slots are dequantized once to bf16 and run through flash attention;
+    this must match the direct int8 einsum attention within bf16
+    tolerance, for the flat planes (scales (B, Hkv, S)) and the stacked
+    layout's 4D planes (scales (B, S, Hkv)). XLA's implementation of the
+    same call stands in for cuDNN, which has no CPU implementation."""
+    from tpu_llm.kernels.attention import prefill_attention
+
+    for flat in (True, False):
+        q, kc, vc = _int8_prompt_cache(flat)
+        positions = jnp.arange(q.shape[1], dtype=jnp.int32)
+        expected = gqa_attention(q.astype(jnp.float32), kc, vc, positions)
+        got = prefill_attention(q, kc, vc, implementation="xla")
+        np.testing.assert_allclose(
+            np.asarray(got, np.float32), np.asarray(expected), rtol=0.05,
+            atol=0.05)

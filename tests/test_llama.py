@@ -288,47 +288,10 @@ def test_fold_rope_interleave_matches():
                                rtol=1e-5, atol=1e-5)
 
 
-def test_deferred_kv_decode_matches_standard():
-    """forward(defer_kv=True) on a flat-stacked cache: attention against
-    the stale cache + explicit current k/v, one batched DUS per plane.
-    Logits and cache contents must match the per-layer-write path (up to
-    f32 summation order)."""
-    w = make_weights(23)
-    params = to_params(w)
-    cfg = LlamaConfig(**CFG)
-    pu = M.unstack_layers(dict(params, layers=dict(params["layers"])))
-
-    tokens = jnp.asarray([[3, 17, 42], [9, 9, 1]], jnp.int32)
-    c_ref = M.init_cache(cfg, 2, CFG["seq_len"], stacked=False)
-    c_fs = M.init_cache(cfg, 2, CFG["seq_len"], flat_stacked=True)
-    h_ref, c_ref = M.forward(pu, cfg, tokens, c_ref, jnp.int32(0))
-    h_fs, c_fs = M.forward(pu, cfg, tokens, c_fs, jnp.int32(0))
-    np.testing.assert_allclose(np.asarray(h_fs), np.asarray(h_ref),
-                               rtol=1e-5, atol=1e-5)
-    assert c_fs["k"].shape == (CFG["n_layers"], 2, CFG["seq_len"],
-                               CFG["dim"] // CFG["n_heads"] * CFG["n_kv_heads"])
-
-    tok = jnp.asarray([7, 12], jnp.int32)
-    for step in range(3):
-        pos = jnp.int32(3 + step)
-        lg_ref, c_ref = M.decode_step(pu, cfg, tok, c_ref, pos)
-        lg_fs, c_fs = M.decode_step(pu, cfg, tok, c_fs, pos, defer_kv=True)
-        np.testing.assert_allclose(np.asarray(lg_fs), np.asarray(lg_ref),
-                                   rtol=1e-5, atol=1e-5)
-        tok = jnp.argmax(lg_ref, -1).astype(jnp.int32)
-    for i in range(CFG["n_layers"]):
-        np.testing.assert_allclose(np.asarray(c_fs["k"][i]),
-                                   np.asarray(c_ref["k"][i]),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(c_fs["v"][i]),
-                                   np.asarray(c_ref["v"][i]),
-                                   rtol=1e-5, atol=1e-5)
-
-
 @pytest.mark.parametrize("cache_dtype", [jnp.float32, "int8"])
 def test_flat_unstacked_cache_matches_stacked(cache_dtype):
     """Unstacked caches store flat (B, S, Hkv*D) planes (in-place updates
-    — experiments/dus_alias.py); numerics must match the stacked 4D path
+    ); numerics must match the stacked 4D path
     exactly (dense) / exactly (int8: same quantization, different plane
     layout)."""
     w = make_weights(11)

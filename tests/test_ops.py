@@ -197,7 +197,7 @@ def test_rope_yarn_matches_ggml_formula():
 
 def test_rope_scaling_metadata_from_gguf(tmp_path):
     """rope.scaling.* keys land in the config (modern + legacy spellings)."""
-    from make_tiny_gguf import build
+    from tests.make_tiny_gguf import build
 
     from tpu_llm.io import gguf as gg
     from tpu_llm.models.llama import config_from_gguf

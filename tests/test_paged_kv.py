@@ -119,98 +119,107 @@ def test_allocator_free_list():
         a.alloc(8)
 
 
+def _paged_kernel(q, kv, pos):
+    """The GPU paged-decode kernel (kernels.attention), interpret mode."""
+    from tpu_llm.kernels.attention import paged_decode_attention
+
+    return paged_decode_attention(q, kv.k_pool, kv.v_pool, kv.block_table,
+                                  pos, kv.k_scale, kv.v_scale,
+                                  interpret=True)
+
+
 @pytest.mark.parametrize("positions", [[0, 5], [7, 31], [16, 3], [63, 48]])
 def test_paged_flash_decode_matches_gather(positions):
-    """Paged flash kernel (interpret mode) == gather + masked einsum
+    """Paged decode kernel (interpret mode) == gather + masked einsum
     attention, per-row positions, partially-filled blocks."""
-    import jax
     from tpu_llm.ops.attention import gqa_attention
-    from tpu_llm.ops.flash_attention import paged_flash_decode_attention
     from tpu_llm.ops.paged_kv import PagedKV, paged_gather
 
     B, H, Hkv, D, bs, MB = 2, 8, 2, 64, 16, 4
     N = 1 + B * MB
     rng = np.random.default_rng(sum(positions))
-    k_pool = jnp.asarray(rng.standard_normal((N, bs, Hkv * D)), jnp.float32)
-    v_pool = jnp.asarray(rng.standard_normal((N, bs, Hkv * D)), jnp.float32)
+    k_pool = jnp.asarray(rng.standard_normal((N, bs, Hkv * D)), jnp.bfloat16)
+    v_pool = jnp.asarray(rng.standard_normal((N, bs, Hkv * D)), jnp.bfloat16)
     # each row gets its own distinct (shuffled) blocks
     ids = rng.permutation(np.arange(1, N)).reshape(B, MB).astype(np.int32)
     table = jnp.asarray(ids)
     pos = jnp.asarray(positions, jnp.int32)
-    q = jnp.asarray(rng.standard_normal((B, 1, H, D)), jnp.float32)
+    q = jnp.asarray(rng.standard_normal((B, 1, H, D)), jnp.bfloat16)
 
     kv = PagedKV(k_pool, v_pool, table, pos + 1)
     kg, vg = paged_gather(kv)
     S = kg.shape[1]
+    f32 = lambda a: a.astype(jnp.float32)  # noqa: E731
     expected = gqa_attention(
-        q, kg.reshape(B, S, Hkv, D), vg.reshape(B, S, Hkv, D),
+        f32(q), f32(kg).reshape(B, S, Hkv, D), f32(vg).reshape(B, S, Hkv, D),
         pos[:, None], kv_lengths=pos + 1)
 
-    got = paged_flash_decode_attention(
-        q, k_pool, v_pool, table, pos, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               rtol=2e-5, atol=2e-5)
+    got = _paged_kernel(q, kv, pos)
+    # bf16 probabilities in the p.v product: ~2^-8 relative
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(expected), rtol=2e-2, atol=2e-2)
 
 
 def test_paged_flash_decode_skips_unmapped_blocks():
     """Blocks past pos are never read: poison them (including table
     entries pointing at the null block) — output unchanged."""
-    from tpu_llm.ops.flash_attention import paged_flash_decode_attention
+    from tpu_llm.ops.paged_kv import PagedKV
 
-    B, H, Hkv, D, bs, MB = 1, 4, 2, 64, 8, 4
+    B, H, Hkv, D, bs, MB = 1, 4, 2, 64, 16, 4
     rng = np.random.default_rng(0)
-    k_pool = jnp.asarray(rng.standard_normal((6, bs, Hkv * D)), jnp.float32)
-    v_pool = jnp.asarray(rng.standard_normal((6, bs, Hkv * D)), jnp.float32)
+    k_pool = jnp.asarray(rng.standard_normal((6, bs, Hkv * D)), jnp.bfloat16)
+    v_pool = jnp.asarray(rng.standard_normal((6, bs, Hkv * D)), jnp.bfloat16)
     table = jnp.asarray([[1, 2, 0, 0]], jnp.int32)   # only 2 mapped blocks
-    pos = jnp.asarray([11], jnp.int32)               # inside block 1
-    q = jnp.asarray(rng.standard_normal((B, 1, H, D)), jnp.float32)
+    pos = jnp.asarray([bs + 11], jnp.int32)          # inside block 1
+    q = jnp.asarray(rng.standard_normal((B, 1, H, D)), jnp.bfloat16)
 
-    base = paged_flash_decode_attention(q, k_pool, v_pool, table, pos,
-                                        interpret=True)
+    base = _paged_kernel(q, PagedKV(k_pool, v_pool, table, pos + 1), pos)
     # poison the null block and every unmapped pool block
-    k_poison = k_pool.at[jnp.asarray([0, 3, 4, 5])].add(1e3)
-    v_poison = v_pool.at[jnp.asarray([0, 3, 4, 5])].add(1e3)
-    got = paged_flash_decode_attention(q, k_poison, v_poison, table, pos,
-                                       interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(base),
-                               rtol=0, atol=0)
+    poison = jnp.asarray([0, 3, 4, 5])
+    got = _paged_kernel(q, PagedKV(k_pool.at[poison].add(1e3),
+                                   v_pool.at[poison].add(1e3), table,
+                                   pos + 1), pos)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(base))
 
 
-@pytest.mark.parametrize("positions", [[0, 40], [70, 95]])
-def test_paged_flash_decode_q_matches_gather(positions):
-    """int8-pool paged flash kernel (interpret) == gather + int8 einsum
-    attention (same score-matrix scale factorization)."""
-    from tpu_llm.ops.paged_kv import (PagedKV, paged_gqa_attention,
-                                      paged_update_tokens)
-    from tpu_llm.ops.flash_attention import paged_flash_decode_q
+def _int8_paged(rng, B, Hkv, D, bs, MB, upto):
+    """An int8 PagedKV written token by token through paged_update_tokens
+    up to position ``upto`` for every row."""
+    from tpu_llm.ops.paged_kv import PagedKV, paged_update_tokens
 
-    B, H, Hkv, D, bs, MB = 2, 8, 2, 64, 32, 4
     N = 1 + B * MB
-    rng = np.random.default_rng(positions[0])
     kv = PagedKV.zeros(n_blocks=N, block_size=bs, batch=B, max_blocks=MB,
                        kv_dim=Hkv * D, dtype="int8", n_kv_heads=Hkv)
     ids = rng.permutation(np.arange(1, N)).reshape(B, MB).astype(np.int32)
     kv = PagedKV(kv.k_pool, kv.v_pool, jnp.asarray(ids), kv.lengths,
                  kv.k_scale, kv.v_scale)
-    # write real rows token-by-token up to max(positions)
-    for p in range(max(positions) + 1):
+    for p in range(upto + 1):
         k = jnp.asarray(rng.standard_normal((B, 1, Hkv, D)), jnp.float32)
         v = jnp.asarray(rng.standard_normal((B, 1, Hkv, D)), jnp.float32)
         kv = paged_update_tokens(kv, k, v, jnp.full((B,), p, jnp.int32))
+    return kv
+
+
+@pytest.mark.parametrize("positions", [[0, 40], [70, 95]])
+def test_paged_flash_decode_q_matches_gather(positions):
+    """int8-pool paged decode kernel (interpret) == gather + int8 einsum
+    attention (same score-matrix scale factorization)."""
+    from tpu_llm.ops.paged_kv import PagedKV, paged_gqa_attention
+
+    B, H, Hkv, D, bs, MB = 2, 8, 2, 64, 32, 4
+    rng = np.random.default_rng(positions[0])
+    kv = _int8_paged(rng, B, Hkv, D, bs, MB, max(positions))
     pos = jnp.asarray(positions, jnp.int32)
     kv = PagedKV(kv.k_pool, kv.v_pool, kv.block_table, pos + 1,
                  kv.k_scale, kv.v_scale)
-    q = jnp.asarray(rng.standard_normal((B, 1, H, D)), jnp.float32)
+    q = jnp.asarray(rng.standard_normal((B, 1, H, D)), jnp.bfloat16)
 
-    expected = paged_gqa_attention(q, kv, pos[:, None])   # CPU gather path
-    got = paged_flash_decode_q(q, kv.k_pool, kv.v_pool, kv.k_scale,
-                               kv.v_scale, kv.block_table, pos,
-                               interpret=True)
-    # kernel contracts in bf16 (int8 values exact; q and p*vs rounded to
-    # bf16 like the dense kernel's AV pass) vs the gather path's f32 —
-    # expect <=2^-8 relative deltas
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expected),
-                               rtol=5e-3, atol=5e-3)
+    expected = paged_gqa_attention(q.astype(jnp.float32), kv,
+                                   pos[:, None])   # CPU gather path
+    got = _paged_kernel(q, kv, pos)
+    # bf16 q in the q.k product vs the gather path's f32
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(expected), rtol=2e-2, atol=2e-2)
 
 
 def test_out_of_table_writes_go_to_null_block():
@@ -239,85 +248,42 @@ def test_out_of_table_writes_go_to_null_block():
     assert (np.asarray(kv2.k_pool)[3] == 0).all()   # unmapped block untouched
 
 
+@pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("contiguous", [True, False])
-def test_paged_flash_decode_coalesce_parity(contiguous):
-    """TPU_LLM_PAGED_COALESCE=1: the single-DMA fast path for
-    consecutive-block chunks matches the per-block path exactly, on both
-    a fully contiguous table (fast path taken) and a shuffled one
-    (contiguity test fails -> per-block fallback)."""
-    import os
-
-    import jax
-    from tpu_llm.ops.flash_attention import paged_flash_decode_attention
-
-    B, H, Hkv, D, bs, MB = 2, 8, 2, 64, 16, 4
-    N = 1 + B * MB
-    rng = np.random.default_rng(11 + contiguous)
-    k_pool = jnp.asarray(rng.standard_normal((N, bs, Hkv * D)), jnp.float32)
-    v_pool = jnp.asarray(rng.standard_normal((N, bs, Hkv * D)), jnp.float32)
-    if contiguous:
-        ids = np.arange(1, N).reshape(B, MB).astype(np.int32)
-    else:
-        ids = rng.permutation(np.arange(1, N)).reshape(B, MB).astype(np.int32)
-    table = jnp.asarray(ids)
-    pos = jnp.asarray([bs * MB - 2, bs * 2 + 3], jnp.int32)
-    q = jnp.asarray(rng.standard_normal((B, 1, H, D)), jnp.float32)
-
-    os.environ["TPU_LLM_PAGED_COALESCE"] = "0"
-    try:
-        base = paged_flash_decode_attention(q, k_pool, v_pool, table, pos,
-                                            interpret=True)
-    finally:
-        del os.environ["TPU_LLM_PAGED_COALESCE"]
-    os.environ["TPU_LLM_PAGED_COALESCE"] = "1"
-    try:
-        got = paged_flash_decode_attention(q, k_pool, v_pool, table, pos,
-                                           interpret=True)
-    finally:
-        del os.environ["TPU_LLM_PAGED_COALESCE"]
-    np.testing.assert_allclose(np.asarray(got), np.asarray(base),
-                               rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.parametrize("contiguous", [True, False])
-def test_paged_flash_decode_q_coalesce_parity(contiguous):
-    """int8-pool variant of the coalesce parity check (k/v pools
-    coalesce, scale planes stay per-block at consecutive ids)."""
-    import os
-
-    from tpu_llm.ops.flash_attention import paged_flash_decode_q
-    from tpu_llm.ops.paged_kv import scale_pool_width, scale_rows_per_block
+def test_paged_decode_kernel_block_placement(contiguous, quantized):
+    """The kernel reads pages through the block table only: the same
+    logical cache placed in consecutive blocks or in shuffled ones gives
+    the same output, bf16 and int8 pools alike."""
+    from tpu_llm.ops.paged_kv import PagedKV
 
     B, H, Hkv, D, bs, MB = 2, 8, 2, 64, 32, 4
     N = 1 + B * MB
-    rng = np.random.default_rng(23 + contiguous)
-    hp = scale_rows_per_block(Hkv)
-    sp = scale_pool_width(bs)
-    k_pool = jnp.asarray(
-        rng.integers(-127, 128, (N, bs, Hkv * D)), jnp.int8)
-    v_pool = jnp.asarray(
-        rng.integers(-127, 128, (N, bs, Hkv * D)), jnp.int8)
-    ks = jnp.asarray(rng.uniform(0.01, 0.1, (N * hp, sp)), jnp.float32)
-    vs = jnp.asarray(rng.uniform(0.01, 0.1, (N * hp, sp)), jnp.float32)
-    if contiguous:
-        ids = np.arange(1, N).reshape(B, MB).astype(np.int32)
+    rng = np.random.default_rng(11 + contiguous + 2 * quantized)
+    if quantized:
+        kv = _int8_paged(rng, B, Hkv, D, bs, MB, bs * MB - 1)
     else:
-        ids = rng.permutation(np.arange(1, N)).reshape(B, MB).astype(np.int32)
-    table = jnp.asarray(ids)
-    pos = jnp.asarray([bs * MB - 2, bs + 5], jnp.int32)
-    q = jnp.asarray(rng.standard_normal((B, 1, H, D)), jnp.float32)
+        mk = lambda: jnp.asarray(  # noqa: E731
+            rng.standard_normal((N, bs, Hkv * D)), jnp.bfloat16)
+        ids = rng.permutation(np.arange(1, N)).reshape(B, MB)
+        kv = PagedKV(mk(), mk(), jnp.asarray(ids, jnp.int32),
+                     jnp.zeros((B,), jnp.int32))
+    pos = jnp.asarray([bs * MB - 2, bs * 2 + 3], jnp.int32)
+    q = jnp.asarray(rng.standard_normal((B, 1, H, D)), jnp.bfloat16)
+    base = _paged_kernel(q, kv, pos)
 
-    os.environ["TPU_LLM_PAGED_COALESCE"] = "0"
-    try:
-        base = paged_flash_decode_q(q, k_pool, v_pool, ks, vs, table, pos,
-                                    interpret=True)
-    finally:
-        del os.environ["TPU_LLM_PAGED_COALESCE"]
-    os.environ["TPU_LLM_PAGED_COALESCE"] = "1"
-    try:
-        got = paged_flash_decode_q(q, k_pool, v_pool, ks, vs, table, pos,
-                                   interpret=True)
-    finally:
-        del os.environ["TPU_LLM_PAGED_COALESCE"]
-    np.testing.assert_allclose(np.asarray(got), np.asarray(base),
+    # move every row's blocks to new pool slots (consecutive or shuffled)
+    old = np.asarray(kv.block_table).reshape(-1)
+    new = (np.arange(1, N) if contiguous
+           else rng.permutation(np.arange(1, N)))
+    perm = np.zeros(N, np.int64)
+    perm[new] = old                      # new slot <- old slot's contents
+    move = lambda p: None if p is None else jnp.take(  # noqa: E731
+        p, jnp.asarray(perm), axis=0 if p.ndim == 3 and p.shape[0] == N
+        else 1)
+    moved = PagedKV(move(kv.k_pool), move(kv.v_pool),
+                    jnp.asarray(new.reshape(B, MB), jnp.int32), kv.lengths,
+                    move(kv.k_scale), move(kv.v_scale))
+    got = _paged_kernel(q, moved, pos)
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(base, np.float32),
                                rtol=1e-6, atol=1e-6)

@@ -2,7 +2,7 @@
 five-bucket exit report (llama2.f90:403-410) measured as per-phase jitted
 scans. On the CPU test backend we check the programs build/run and the
 report has the reference's shape; the numbers themselves are only
-meaningful on TPU."""
+meaningful on the GPU."""
 
 import math
 
@@ -40,7 +40,7 @@ def test_measure_phase_times_all_buckets():
     for fused in (False, True):
         times = measure_phase_times(
             tiny_params(cfg, fused), cfg, batch=1, pos=8, max_seq=32,
-            n1=2, n2=6,
+            steps=6,
         )
         assert set(times) == set(BUCKETS)
         assert all(math.isfinite(v) for v in times.values())

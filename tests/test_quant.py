@@ -5,7 +5,7 @@ import jax.numpy as jnp
 
 from tpu_llm.quant import blocks
 from tpu_llm.quant.qtensor import QTensor, quantize_tensor, dequantize, unpack_q4
-from tpu_llm.quant.pallas_matmul import qmatmul_pallas, pallas_tiles_ok
+from tpu_llm.kernels.qmatmul import qmatmul
 
 
 def test_q4_0_roundtrip_error_bounded():
@@ -66,165 +66,32 @@ def test_unpack_q4_layout():
 @pytest.mark.parametrize("kind", ["q4_0", "q8_0"])
 @pytest.mark.parametrize("rows", [1, 3, 8])
 def test_pallas_qmatmul_interpret_matches_xla(kind, rows):
+    """The Triton dequant-matmul (interpret mode) against the f32 matmul
+    of the dequantized weight, on the same bf16-rounded activations."""
     rng = np.random.default_rng(3)
     K, N = 128, 256
     w = rng.standard_normal((K, N)).astype(np.float32)
-    x = rng.standard_normal((rows, K)).astype(np.float32)
+    x = jnp.asarray(rng.standard_normal((rows, K)), jnp.bfloat16)
     qt = quantize_tensor(w, kind)
-    assert pallas_tiles_ok(qt)
-    expected = x @ np.asarray(dequantize(qt, jnp.float32))
-    got = np.asarray(qmatmul_pallas(jnp.asarray(x), qt, interpret=True))
-    np.testing.assert_allclose(got, expected, rtol=2e-4, atol=2e-4)
+    expected = np.asarray(x, np.float32) @ np.asarray(dequantize(qt, jnp.float32))
+    got = np.asarray(qmatmul(x, qt.q, qt.scales, interpret=True))
+    # each dequantized weight is rounded once to bf16 in registers
+    np.testing.assert_allclose(got, expected, rtol=0,
+                               atol=1e-2 * np.abs(expected).max())
 
 
 def test_pallas_qmatmul_3d_input():
     rng = np.random.default_rng(4)
     K, N = 64, 128
     w = rng.standard_normal((K, N)).astype(np.float32)
-    x = rng.standard_normal((2, 3, K)).astype(np.float32)
+    x = jnp.asarray(rng.standard_normal((2, 3, K)), jnp.bfloat16)
     qt = quantize_tensor(w, "q4_0")
-    expected = x.reshape(-1, K) @ np.asarray(dequantize(qt, jnp.float32))
-    got = np.asarray(qmatmul_pallas(jnp.asarray(x), qt, interpret=True))
+    expected = (np.asarray(x, np.float32).reshape(-1, K)
+                @ np.asarray(dequantize(qt, jnp.float32)))
+    got = np.asarray(qmatmul(x, qt.q, qt.scales, interpret=True))
     assert got.shape == (2, 3, N)
-    np.testing.assert_allclose(got.reshape(-1, N), expected, rtol=2e-4, atol=2e-4)
-
-
-def test_tiles_gate_matches_kernel_itemsize():
-    """The gate and the kernel evaluate the same VMEM budget: for every
-    activation itemsize, pallas_tiles_ok agrees with _pick_tiles given
-    that itemsize (ADVICE r2 — the gate used to hardcode f32)."""
-    from tpu_llm.quant.pallas_matmul import _pick_tiles, _row_tile, _tile_params
-
-    rng = np.random.default_rng(11)
-    for K, N in [(128, 256), (2048, 2048), (2048, 32000), (5632, 2048),
-                 (96, 256), (2048, 96)]:
-        w = rng.standard_normal((K, N)).astype(np.float32)
-        qt = quantize_tensor(w, "q4_0")
-        for rows in (1, 256):
-            for itemsize in (2.0, 4.0):
-                tk, tn = _pick_tiles(K, N, tb=_row_tile(rows),
-                                     x_itemsize=itemsize, **_tile_params(qt))
-                want = tk is not None and tn is not None
-                assert pallas_tiles_ok(qt, rows, x_itemsize=itemsize) == want
-
-
-def test_to_int4_dequant_parity():
-    import jax
-    from tpu_llm.quant.qtensor import to_int4
-
-    rng = np.random.default_rng(5)
-    K, N = 128, 256
-    w = rng.standard_normal((K, N)).astype(np.float32)
-    qt = quantize_tensor(w, "q4_0")
-    qi = jax.jit(to_int4)(qt)
-    assert qi.kind == "q4_0i4"
-    assert qi.shape == (K, N)
-    np.testing.assert_array_equal(
-        np.asarray(dequantize(qi, jnp.float32)),
-        np.asarray(dequantize(qt, jnp.float32)),
-    )
-
-
-@pytest.mark.parametrize("rows", [1, 8])
-def test_pallas_qmatmul_int4_interpret(rows):
-    import jax
-    from tpu_llm.quant.qtensor import to_int4
-
-    rng = np.random.default_rng(6)
-    K, N = 128, 256
-    w = rng.standard_normal((K, N)).astype(np.float32)
-    x = rng.standard_normal((rows, K)).astype(np.float32)
-    qt = quantize_tensor(w, "q4_0")
-    qi = jax.jit(to_int4)(qt)
-    assert pallas_tiles_ok(qi)
-    expected = x @ np.asarray(dequantize(qt, jnp.float32))
-    got = np.asarray(qmatmul_pallas(jnp.asarray(x), qi, interpret=True))
-    np.testing.assert_allclose(got, expected, rtol=2e-4, atol=2e-4)
-
-
-def test_unpack_params_int4_tree():
-    import jax
-    from tpu_llm.quant.convert_params import unpack_params_int4
-
-    rng = np.random.default_rng(7)
-    w = rng.standard_normal((64, 128)).astype(np.float32)
-    params = {
-        "wcls": quantize_tensor(w, "q4_0"),
-        "q8": quantize_tensor(w, "q8_0"),
-        "norm": jnp.ones((64,), jnp.float32),
-        "layers": [{"wq": quantize_tensor(w, "q4_0")}],
-    }
-    out = jax.jit(unpack_params_int4)(params)
-    assert out["wcls"].kind == "q4_0i4"
-    assert out["q8"].kind == "q8_0"          # values untouched
-    assert out["layers"][0]["wq"].kind == "q4_0i4"
-    assert out["norm"].dtype == jnp.float32
-    # with pack_scales=True, q4 scales become f16-bit int16 planes —
-    # EXACTLY representing the f32 scales (f16-valued by block-format
-    # construction). q8_0 scales stay f32: packing measured a 16% LOSS
-    # there (608.7 -> 511.5 tok/s, experiments/r3_q8_paged_int8.py).
-    out = jax.jit(lambda p: unpack_params_int4(p, pack_scales=True))(params)
-    assert out["wcls"].scales.dtype == jnp.int16
-    assert out["q8"].scales.dtype == jnp.float32
-    for a, b in (("wcls",) * 2, ("q8",) * 2):
-        np.testing.assert_array_equal(
-            np.asarray(dequantize(out[a], jnp.float32)),
-            np.asarray(dequantize(params[b], jnp.float32)),
-        )
-
-
-def test_qmatmul_f16bit_scales_interpret():
-    """The kernel's in-register f16-bits->f32 scale rebuild is exact,
-    including subnormal f16 scales (near-zero blocks)."""
-    import jax
-    from tpu_llm.quant.convert_params import unpack_params_int4
-    from tpu_llm.quant.qtensor import pack_scales_f16
-
-    rng = np.random.default_rng(3)
-    w = rng.standard_normal((256, 256)).astype(np.float32) * 0.05
-    w[:32, :] *= 1e-7                          # subnormal-scale blocks
-    x = rng.standard_normal((2, 256)).astype(np.float32).astype(jnp.bfloat16)
-    for kind in ("q4_0", "q8_0"):
-        qt = quantize_tensor(w, kind)
-        ref = np.asarray(qmatmul_pallas(jnp.asarray(x), qt, interpret=True))
-        qp = jax.jit(lambda q: pack_scales_f16(q))(qt)
-        got = np.asarray(qmatmul_pallas(jnp.asarray(x), qp, interpret=True))
-        np.testing.assert_array_equal(got, ref)
-
-
-def test_qmatmul_bf16_scales_interpret():
-    """bf16 scale planes: half the scale bytes at <=2^-8 relative scale
-    rounding; kernel result matches dequantizing with bf16-rounded scales
-    exactly (the only difference vs f32 scales is the scale rounding)."""
-    import jax
-    from tpu_llm.quant.convert_params import unpack_params_int4
-    from tpu_llm.quant.qtensor import QTensor, pack_scales_bf16
-
-    rng = np.random.default_rng(11)
-    w = rng.standard_normal((256, 256)).astype(np.float32) * 0.05
-    x = rng.standard_normal((2, 256)).astype(np.float32)
-    for kind in ("q4_0", "q8_0"):
-        qt = quantize_tensor(w, kind)
-        qp = jax.jit(pack_scales_bf16)(qt)
-        assert qp.scales.dtype == jnp.bfloat16
-        rounded = QTensor(
-            q=qt.q, scales=np.asarray(qp.scales).astype(np.float32), kind=kind
-        )
-        ref = x @ np.asarray(dequantize(rounded, jnp.float32))
-        got = np.asarray(
-            qmatmul_pallas(jnp.asarray(x), qp, interpret=True, out_dtype=jnp.float32)
-        )
-        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
-        # relative scale error bounded by bf16 rounding
-        rel = np.abs(np.asarray(qp.scales, np.float32) - np.asarray(qt.scales)) / (
-            np.abs(np.asarray(qt.scales)) + 1e-30
-        )
-        assert rel.max() <= 2.0 ** -8
-    # tree transform routes "bf16" mode
-    params = {"wcls": quantize_tensor(w, "q4_0")}
-    out = jax.jit(lambda p: unpack_params_int4(p, pack_scales="bf16"))(params)
-    assert out["wcls"].scales.dtype == jnp.bfloat16
-    assert out["wcls"].kind == "q4_0i4"
+    np.testing.assert_allclose(got.reshape(-1, N), expected, rtol=0,
+                               atol=1e-2 * np.abs(expected).max())
 
 
 def test_q5_0_roundtrip_error_bounded():
@@ -319,107 +186,6 @@ def test_q5_matmul_via_linear_matches_dequant():
         got = np.asarray(matmul(x, qt))
         want = np.asarray(x @ dequantize(qt, jnp.float32))
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5), kind
-
-
-def test_pick_tiles_production_shapes():
-    """Pin the measured-best tile choices for TinyLlama's projection
-    shapes (experiments/r2_tile_pipeline.py, on-chip 2026-08-18) and the
-    VMEM-budget behavior that keeps q8_0 from OOMing: the budget is the
-    DOUBLE-BUFFERED packed+scales tile pair against the 16MB scoped VMEM
-    limit, so q8 (1 byte/weight) gets smaller K-tiles than q4 (0.5)."""
-    from tpu_llm.quant.pallas_matmul import _pick_tiles
-
-    q4 = dict(packed_itemsize=0.5, scale_itemsize=2.0)   # int4 + bf16 scales
-    q4f = dict(packed_itemsize=0.5, scale_itemsize=4.0)  # int4 + f32 scales
-    q8 = dict(packed_itemsize=1.0, scale_itemsize=4.0)
-
-    # wqkv / wo: full-K single-step tiles (750/744 GB/s measured)
-    assert _pick_tiles(2048, 2560, **q4) == (2048, 2560)
-    assert _pick_tiles(2048, 2048, **q4) == (2048, 2048)
-    # w13: tk=1024 (823 GB/s vs 786 at 512) — only with 2-byte scales
-    assert _pick_tiles(2048, 11264, **q4) == (1024, 11264)
-    assert _pick_tiles(2048, 11264, **q4f) == (512, 11264)
-    # w2: the 11*256 divisor the old candidate list missed
-    assert _pick_tiles(5632, 2048, **q4) == (5632, 2048)
-    # vocab classifier: widest stripe that keeps full-K
-    assert _pick_tiles(2048, 32000, **q4) == (2048, 4096)
-    assert _pick_tiles(2048, 32000, **q8) == (2048, 2048)
-    # q8_0 w13 at tk=1024 double-buffers 2x11.2MB and OOMs scoped VMEM —
-    # the budget must keep it at or below 512
-    tk, _ = _pick_tiles(2048, 11264, **q8)
-    assert tk <= 512
-    # the r5 small-tile probe (serialized chains rated tk=256/512 ahead
-    # on every 1-byte shape, but the full model measured 610 -> 529):
-    # TPU_LLM_MIN_KSTEPS stays env-gated, off by default
-    import os as _os
-    _os.environ["TPU_LLM_MIN_KSTEPS"] = "8"
-    try:
-        assert _pick_tiles(2048, 2560, **q8) == (256, 2560)
-        assert _pick_tiles(2048, 32000, **q8) == (256, 4096)
-    finally:
-        del _os.environ["TPU_LLM_MIN_KSTEPS"]
-
-
-def test_pick_tiles_prefill_shapes():
-    """Prefill-shaped row tiles (tb=256) must shrink the N stripe: the
-    out window double-buffers tb x tn x 4 bytes of scoped VMEM, and a
-    full-width w13 stripe (2 x 256 x 11264 x 4 = 22.5MB) is the exact
-    Mosaic OOM a 2048-token q4_0 prefill hit on-chip
-    (experiments/r3_q8_paged_int8.py, 2026-08-19)."""
-    from tpu_llm.quant.pallas_matmul import _pick_tiles
-
-    q4 = dict(packed_itemsize=0.5, scale_itemsize=2.0)
-    # w13 at tb=256: full width rejected, falls to a narrower stripe
-    tk, tn = _pick_tiles(2048, 11264, tb=256, x_itemsize=2.0, **q4)
-    assert tn < 11264 and tk is not None
-    assert 2 * (tk * tn * 0.5 + tk // 32 * tn * 2.0
-                + 256 * tk * 2.0 + 256 * tn * 4) <= 14 * 1024 * 1024
-    # decode shapes (tb=8) keep the pinned round-2 tiles
-    assert _pick_tiles(2048, 11264, tb=8, **q4) == (1024, 11264)
-    assert _pick_tiles(2048, 32000, tb=8, **q4) == (2048, 4096)
-
-
-def test_pad_k_exact():
-    """pad_k: zero scale rows make padded weights dequantize to exactly
-    0; matmul through linear.matmul (which zero-pads x) is unchanged."""
-    import jax
-    from tpu_llm.quant.qtensor import pad_k
-    from tpu_llm.quant.linear import matmul
-
-    rng = np.random.default_rng(12)
-    K, N = 256, 128
-    w = rng.standard_normal((K, N)).astype(np.float32)
-    x = jnp.asarray(rng.standard_normal((2, K)).astype(np.float32))
-    for kind in ("q4_0", "q8_0"):
-        qt = quantize_tensor(w, kind)
-        qp = jax.jit(lambda q: pad_k(q, 1024))(qt)
-        assert qp.shape == (1024, N)
-        deq = np.asarray(dequantize(qp, jnp.float32))
-        np.testing.assert_array_equal(deq[:K],
-                                      np.asarray(dequantize(qt, jnp.float32)))
-        np.testing.assert_array_equal(deq[K:], 0.0)
-        np.testing.assert_array_equal(np.asarray(matmul(x, qp)),
-                                      np.asarray(matmul(x, qt)))
-
-
-def test_unpack_pads_awkward_7b_k():
-    """unpack_params_int4 pads K dims with no >=1024 legal tile: the
-    Llama-2 7B w2 shape (K=11008=2^8*43, full-width N) tiles at tk=256
-    otherwise. TinyLlama's w2 (K=5632, full-K tile) must NOT pad."""
-    import jax
-    from tpu_llm.quant.convert_params import unpack_params_int4
-    from tpu_llm.quant.qtensor import QTensor
-
-    q = jnp.zeros((11008 // 2, 4096), jnp.uint8)
-    s = jnp.ones((11008 // 32, 4096), jnp.float32)
-    out = jax.jit(unpack_params_int4)({"w2": QTensor(q, s, "q4_0")})
-    assert out["w2"].shape == (11264, 4096)
-    assert out["w2"].kind == "q4_0i4"
-
-    q5 = jnp.zeros((5632 // 2, 2048), jnp.uint8)
-    s5 = jnp.ones((5632 // 32, 2048), jnp.float32)
-    out5 = jax.jit(unpack_params_int4)({"w2": QTensor(q5, s5, "q4_0")})
-    assert out5["w2"].shape == (5632, 2048)
 
 
 # -- K-quants (256-weight superblocks, SURVEY addition: the de-facto GGUF
@@ -532,21 +298,25 @@ def test_kquant_qtensor_matches_host_dequant(kind):
 
 
 @pytest.mark.parametrize("kind", _K_KINDS + ("q4_1", "q5_1"))
-def test_kquant_pallas_kernel_interpret(kind):
-    """The generalized fused kernel (affine mins plane, per-16 scale
-    blocks) matches the XLA dequant matmul in interpret mode."""
-    from tpu_llm.quant.pallas_matmul import pallas_tiles_ok, qmatmul_pallas
+def test_kquant_pallas_kernel_interpret(kind, monkeypatch):
+    """Kinds the GPU dequant-matmul does not cover take the plain path by
+    an explicit choice, also on a GPU: the selection says no and
+    linear.matmul matches the XLA dequant matmul."""
+    from tpu_llm.kernels import select
+    from tpu_llm.quant.linear import matmul
     from tpu_llm.quant.qtensor import dequantize, quantize_tensor
 
+    monkeypatch.setattr(select, "platform", lambda: "gpu")
     rng = np.random.default_rng(9)
     K, N = 512, 128
     w = rng.normal(size=(K, N)).astype(np.float32)
-    x = rng.normal(size=(3, K)).astype(np.float32)
+    x = jnp.asarray(rng.normal(size=(3, K)), jnp.bfloat16)
     qt = quantize_tensor(w, kind)
-    assert pallas_tiles_ok(qt, 3)
-    ref = x @ np.asarray(dequantize(qt, jnp.float32))
-    got = np.asarray(qmatmul_pallas(jnp.asarray(x), qt, interpret=True))
-    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-4)
+    assert not select.qmatmul(x.dtype, 3, qt)
+    ref = np.asarray(x, np.float32) @ np.asarray(
+        dequantize(qt, jnp.bfloat16), np.float32)
+    got = np.asarray(matmul(x, qt, out_dtype=jnp.float32))
+    np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-3)
 
 
 def test_kquant_gguf_roundtrip_and_native_load():
@@ -600,50 +370,6 @@ def test_kquant_linear_matmul_dispatch():
         ref = x @ np.asarray(dequantize(qt, jnp.float32))
         got = np.asarray(matmul(jnp.asarray(x), qt, out_dtype=jnp.float32))
         np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-4), kind
-
-
-def test_kquant_pad_k_affine():
-    """pad_k on an affine QTensor pads mins too and stays an identity."""
-    from tpu_llm.quant.linear import matmul
-    from tpu_llm.quant.qtensor import dequantize, pad_k, quantize_tensor
-
-    rng = np.random.default_rng(15)
-    K, N = 768, 64
-    w = rng.normal(size=(K, N)).astype(np.float32)
-    x = rng.normal(size=(2, K)).astype(np.float32)
-    qt = quantize_tensor(w, "q4_k")
-    qp = pad_k(qt, 1024)
-    assert qp.shape == (1024, N) and qp.mins is not None
-    deq = np.asarray(dequantize(qp, jnp.float32))
-    np.testing.assert_array_equal(deq[K:], 0.0)
-    np.testing.assert_allclose(
-        np.asarray(matmul(jnp.asarray(x), qp, out_dtype=jnp.float32)),
-        np.asarray(matmul(jnp.asarray(x), qt, out_dtype=jnp.float32)),
-        rtol=1e-5, atol=1e-5)
-
-
-def test_to_int4_affine_recenter():
-    """q4_1 (and loaded-as-q4_1 q4_K) -> int4 plane: q*s+m == (q-8)*s +
-    (m+8s) exactly; scale packing converts the mins plane too."""
-    import jax
-
-    from tpu_llm.quant.qtensor import (dequantize, pack_scales_bf16,
-                                       pack_scales_f16, quantize_tensor,
-                                       to_int4)
-
-    rng = np.random.default_rng(21)
-    w = rng.normal(size=(512, 64)).astype(np.float32)
-    qt = quantize_tensor(w, "q4_k")
-    ref = np.asarray(dequantize(qt, jnp.float32))
-    q4 = jax.jit(to_int4)(qt)
-    assert q4.kind == "q4_0i4" and q4.mins is not None
-    np.testing.assert_allclose(np.asarray(dequantize(q4, jnp.float32)),
-                               ref, rtol=1e-5, atol=1e-5)
-    for packer, tol in ((pack_scales_f16, 5e-4), (pack_scales_bf16, 5e-3)):
-        qp = jax.jit(packer)(q4)
-        assert qp.mins is not None and qp.mins.dtype == qp.scales.dtype
-        dp = np.asarray(dequantize(qp, jnp.float32))
-        assert np.abs(dp - ref).max() / np.abs(ref).max() < tol
 
 
 # -- Independent golden decoders for q2_k / q3_k / q5_k ----------------------
@@ -847,11 +573,11 @@ def test_q5_k_golden_block_pinned():
 
 def test_pack_q6_k_roundtrip_and_matmul():
     """The 6-bit q6_kp device layout (pack_q6_k): dequantizes EXACTLY like
-    the int8 plane it came from, and the fused kernel (deferred -32 via
-    the block-sum MXU correction) matches the dense matmul."""
+    the int8 plane it came from, and the projection matches the dense
+    matmul."""
     import jax.numpy as jnp
 
-    from tpu_llm.quant.pallas_matmul import qmatmul_pallas
+    from tpu_llm.quant.linear import matmul
     from tpu_llm.quant.qtensor import QTensor, dequantize, pack_q6_k
 
     rng = np.random.default_rng(2)
@@ -866,77 +592,17 @@ def test_pack_q6_k_roundtrip_and_matmul():
     dp = np.asarray(dequantize(qtp, jnp.float32))
     np.testing.assert_array_equal(d8, dp)
     x = rng.standard_normal((4, K)).astype(np.float32)
-    got = np.asarray(qmatmul_pallas(jnp.asarray(x), qtp, interpret=True))
+    got = np.asarray(matmul(jnp.asarray(x), qtp))
     np.testing.assert_allclose(got, x @ d8, rtol=2e-5, atol=1e-5)
-
-
-def test_affine_mins_mxu_matches_vpu_path():
-    """The mins-as-MXU affine path (group-sum matmul) is numerically
-    equivalent to the broadcast-add path for q4_1/q4_K tensors."""
-    import os
-
-    import jax.numpy as jnp
-
-    from tpu_llm.quant.pallas_matmul import qmatmul_pallas
-    from tpu_llm.quant.qtensor import QTensor, dequantize
-
-    rng = np.random.default_rng(3)
-    K, N = 512, 256
-    q = rng.integers(0, 256, (K // 2, N)).astype(np.uint8)
-    s = rng.uniform(0.001, 0.01, (K // 32, N)).astype(np.float32)
-    m = (-8.0 * s).astype(np.float32)
-    qt = QTensor(jnp.asarray(q), jnp.asarray(s), "q4_1", mins=jnp.asarray(m))
-    x = rng.standard_normal((4, K)).astype(np.float32)
-    ref = x @ np.asarray(dequantize(qt, jnp.float32))
-    got_mxu = np.asarray(qmatmul_pallas(jnp.asarray(x), qt, interpret=True))
-    os.environ["TPU_LLM_MINS_VPU"] = "1"
-    try:
-        got_vpu = np.asarray(qmatmul_pallas(jnp.asarray(x), qt,
-                                            interpret=True))
-    finally:
-        del os.environ["TPU_LLM_MINS_VPU"]
-    np.testing.assert_allclose(got_mxu, ref, rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(got_vpu, ref, rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(got_mxu, got_vpu, rtol=2e-5, atol=1e-5)
-
-
-def test_pad_k_q6_kp():
-    """pad_k on the packed q6_kp layout: the nibble plane pads K/2 rows,
-    the qh 2-bit plane (riding ``mins``) K/4 — identity via zero scales
-    (the r4 advisor repro: the old scale-shaped mins padding crashed
-    dequantize and doubled the logical K)."""
-    import jax
-    from tpu_llm.quant.linear import matmul
-    from tpu_llm.quant.qtensor import (dequantize, pack_q6_k, pad_k,
-                                       quantize_tensor)
-
-    rng = np.random.default_rng(29)
-    K, N = 768, 64
-    w = rng.normal(size=(K, N)).astype(np.float32)
-    x = jnp.asarray(rng.normal(size=(2, K)).astype(np.float32))
-    qt = jax.jit(pack_q6_k)(quantize_tensor(w, "q6_k"))
-    qp = jax.jit(lambda q: pad_k(q, 1024))(qt)
-    assert qp.shape == (1024, N)
-    assert qp.q.shape == (512, N) and qp.mins.shape == (256, N)
-    deq = np.asarray(dequantize(qp, jnp.float32))
-    np.testing.assert_array_equal(
-        deq[:K], np.asarray(dequantize(qt, jnp.float32)))
-    np.testing.assert_array_equal(deq[K:], 0.0)
-    np.testing.assert_allclose(
-        np.asarray(matmul(x, qp, out_dtype=jnp.float32)),
-        np.asarray(matmul(x, qt, out_dtype=jnp.float32)),
-        rtol=1e-5, atol=1e-5)
 
 
 def test_pack_q23_roundtrip_and_matmul():
     """Nibble-packed q2_kp/q3_kp (the loader default): dequantize and the
-    interpret-mode fused kernel match the int8-plane layout exactly
-    (q2's affine mins through the MXU path; q3's deferred -4
-    recentering)."""
+    projection match the int8-plane layout exactly."""
     import os
 
     import jax
-    from tpu_llm.quant.pallas_matmul import pallas_tiles_ok, qmatmul_pallas
+    from tpu_llm.quant.linear import matmul
     from tpu_llm.quant.qtensor import (dequantize, pack_q2_k, pack_q3_k,
                                        quantize_tensor)
 
@@ -960,32 +626,9 @@ def test_pack_q23_roundtrip_and_matmul():
         # the default quantize_tensor path lands on the packed kind
         qdef = quantize_tensor(w, kind)
         assert qdef.kind == kind + "p"
-        assert pallas_tiles_ok(qdef, 3)
         ref = x @ np.asarray(dequantize(qdef, jnp.float32))
-        got = np.asarray(qmatmul_pallas(jnp.asarray(x), qdef,
-                                        interpret=True))
+        got = np.asarray(matmul(jnp.asarray(x), qdef))
         np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-4)
-        # the decode scan's int4-plane conversion (to_int4) covers the
-        # packed kinds: per-16 scale planes ride through, q2's [0,3]
-        # recenters via the mins plane, q3's [-4,3] fits directly
-        from tpu_llm.quant.qtensor import to_int4
-
-        qi = jax.jit(to_int4)(qdef)
-        assert qi.kind == "q4_0i4" and qi.scales.shape[0] == K // 16
-        assert (qi.mins is not None) == (kind == "q2_k")
-        deq_i = np.asarray(dequantize(qi, jnp.float32))
-        deq_p = np.asarray(dequantize(qdef, jnp.float32))
-        if kind == "q2_k":
-            # bf16 planes: the recentered mins (m + 8s) round by
-            # <= 2^-8 relative — bounded by the plane magnitudes
-            mag = np.abs(np.asarray(qi.scales, np.float32)).max() * 8 \
-                + np.abs(np.asarray(qi.mins, np.float32)).max()
-            assert np.abs(deq_i - deq_p).max() <= mag / 128
-        else:
-            np.testing.assert_array_equal(deq_i, deq_p)   # q3: exact
-        got_i = np.asarray(qmatmul_pallas(jnp.asarray(x), qi,
-                                          interpret=True))
-        np.testing.assert_allclose(got_i, x @ deq_i, rtol=2e-5, atol=2e-4)
 
 
 def test_fold_norms_requant_numerics():

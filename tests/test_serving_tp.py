@@ -188,7 +188,7 @@ def test_http_server_under_tp(tmp_path):
 
 def test_batch_engine_tp_quantized_params():
     """QTensor params through the shard_map TP adapter: per-shard fused
-    kernels on TPU, plane-wise sharding everywhere — parity with the
+    kernels on the GPU, plane-wise sharding everywhere — parity with the
     unsharded quantized engine."""
     from tpu_llm.quant.convert_params import quantize_llama_params
 

@@ -1,5 +1,5 @@
 """TP/DP sharding tests on the 8-virtual-device CPU mesh (SURVEY.md §4):
-the same pjit program a TPU slice would run, asserting sharded == single-
+the same pjit program a multi-GPU mesh would run, asserting sharded == single-
 device numerics."""
 
 import numpy as np

@@ -101,16 +101,13 @@ def test_tp_decode_fused_repack_matches():
 
 
 def test_tp_decode_quantized_runs_pallas_per_shard(monkeypatch):
-    """Quantized TP decode must (a) match the dequant reference and
-    (b) actually invoke the Pallas kernel per shard — VERDICT r1 weak
-    item 2: under GSPMD this was never exercised. Shapes are chosen so
-    every LOCAL shard tensor passes the real tile policy (no policy
-    override); on CPU the kernel runs in interpret mode."""
-    import tpu_llm.quant.linear as linear
-    from tpu_llm.quant.pallas_matmul import qmatmul_pallas, pallas_tiles_ok
-    from tpu_llm.quant.convert_params import (
-        fuse_llama_layers, quantize_llama_params,
-    )
+    """Quantized TP decode must (a) match the single-device decode and
+    (b) actually invoke the GPU dequant-matmul kernel per shard: under
+    shard_map the selection sees each shard's LOCAL shapes. The platform
+    is reported as a GPU and the kernel runs in interpret mode."""
+    import tpu_llm.kernels.qmatmul as kq
+    from tpu_llm.kernels import select
+    from tpu_llm.quant.convert_params import quantize_llama_params
 
     cfg = LlamaConfig(dim=256, hidden_dim=512, n_layers=2, n_heads=8,
                       n_kv_heads=4, vocab_size=512, seq_len=32)
@@ -119,42 +116,29 @@ def test_tp_decode_quantized_runs_pallas_per_shard(monkeypatch):
                for k in params["layers"][0]}
     qstacked = quantize_llama_params(dict(params, layers=stacked),
                                      "q4_0", fuse=True)
+    qstacked["tok_emb"] = qstacked["tok_emb"].astype(jnp.bfloat16)
     qparams = M.unstack_layers(qstacked)
     token = jnp.asarray([5], jnp.int32)
 
-    # reference: single-device quantized decode (fallback path)
+    # reference: single-device quantized decode on the plain path
     ref = reference_logits(qparams, cfg, token, pos=0, n_steps=2)
 
     tp = 2
     tparams = dict(qparams,
                    layers=repack_fused_for_tp(qparams["layers"], cfg, tp))
-    # every local weight must pass the REAL tile policy
-    from tpu_llm.quant.qtensor import QTensor
-    lp0 = tparams["layers"][0]
-    for name in ("wqkv", "w13"):
-        qt = lp0[name]
-        local = QTensor(q=qt.q[:, : qt.q.shape[1] // tp],
-                        scales=qt.scales[:, : qt.scales.shape[1] // tp],
-                        kind=qt.kind)
-        assert pallas_tiles_ok(local), (name, local.shape)
-    for name in ("wo", "w2"):
-        qt = lp0[name]
-        local = QTensor(q=qt.q[: qt.q.shape[0] // tp],
-                        scales=qt.scales[: qt.scales.shape[0] // tp],
-                        kind=qt.kind)
-        assert pallas_tiles_ok(local), (name, local.shape)
-
     calls = {"n": 0}
+    real = kq.qmatmul
 
-    def counting_pallas(x, qt, **kw):
+    def counting(x, q, scales, **kw):
         calls["n"] += 1
-        kw["interpret"] = True
-        return qmatmul_pallas(x, qt, **kw)
+        return real(x, q, scales, interpret=True)
 
-    monkeypatch.setattr(linear, "_use_pallas", lambda: True)
-    monkeypatch.setattr(linear, "qmatmul_pallas", counting_pallas)
+    monkeypatch.setattr(select, "platform", lambda: "gpu")
+    monkeypatch.setattr(kq, "qmatmul", counting)
 
     got = run_tp(tparams, cfg, token, pos=0, tp=tp, fused=True, n_steps=2)
-    assert calls["n"] > 0, "quantized TP decode never reached the Pallas kernel"
+    assert calls["n"] > 0, "quantized TP decode never reached the kernel"
     for r, g in zip(ref, got):
-        np.testing.assert_allclose(g, r, rtol=5e-4, atol=5e-4)
+        # bf16 activations; the kernel rounds each weight once to bf16
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=2e-2 * np.abs(r).max())

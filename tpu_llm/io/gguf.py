@@ -413,11 +413,19 @@ def write_gguf(
 ):
     """Write a GGUF file.
 
-    ``tensors`` maps name -> numpy array (stored f32) or (array, ggml_type).
+    ``tensors`` maps name -> numpy array (stored f32), (array, ggml_type),
+    or (raw block bytes, ggml_type, shape) for data already encoded.
     Arrays are in numpy row-major shape; GGML dims are written reversed.
     """
     entries: List[Tuple[str, Tuple[int, ...], int, bytes]] = []
     for name, spec in tensors.items():
+        if isinstance(spec, tuple) and len(spec) == 3:
+            # (raw block bytes, ggml_type, numpy shape): already encoded
+            raw, ttype, shape = spec
+            assert len(raw) == ggml_nbytes(ttype, int(np.prod(shape))), name
+            entries.append((name, tuple(reversed(shape)), ttype,
+                            np.asarray(raw, np.uint8).tobytes()))
+            continue
         if isinstance(spec, tuple):
             arr, ttype = spec
         else:

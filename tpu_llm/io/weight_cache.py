@@ -1,7 +1,7 @@
 """Fast-reload weight cache: a converted checkpoint as serialized arrays.
 
 The reference's answer to slow GGUF parsing is the offline ``load``
-converter writing the packed "ak" binary (load.f90:158-507). The TPU-native
+converter writing the packed "ak" binary (load.f90:158-507). The JAX
 analog (SURVEY.md §5, checkpoint/resume): after one GGUF parse + repack
 (dequant policy applied, QKV/gate-up fused, Q4_0 repacked to the device
 layout), persist the finished parameter pytree as one ``.npz`` and reload

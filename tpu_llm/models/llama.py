@@ -3,8 +3,8 @@
 Functional core: ``forward(params, cfg, tokens, cache, offset)`` — a pure,
 jittable step that serves both prefill (T > 1) and decode (T = 1), with the
 KV cache as an explicit donated pytree. Layers run under ``lax.scan`` over
-parameters stacked on a leading L axis (one compiled block, MXU-friendly,
-fast compiles), replacing the reference's per-layer Fortran loop
+parameters stacked on a leading L axis (one compiled block, fast
+compiles), replacing the reference's per-layer Fortran loop
 (``llama2.f90:523-624``).
 
 Numerics parity with the reference (pinned by tests/test_llama.py and
@@ -22,7 +22,6 @@ projection matmuls dispatch through ``tpu_llm.quant.linear.matmul``.
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import jax
@@ -44,7 +43,7 @@ Cache = Dict[str, jax.Array]
 
 def init_cache(
     cfg: LlamaConfig, batch: int = 1, max_seq: Optional[int] = None, dtype=jnp.float32,
-    stacked: bool = True, flat_stacked: bool = False,
+    stacked: bool = True,
 ) -> Cache:
     """Preallocated static-shape KV cache.
 
@@ -60,14 +59,6 @@ def init_cache(
     values + per-(token, head) f32 scales, tpu_llm.ops.kv_cache)."""
     s = max_seq or cfg.seq_len
     quant = dtype == "int8"
-    if flat_stacked:
-        # (L, B, S, Hkv*D) dense planes with one batched write per step:
-        # measured a LOSS vs per-layer planes (the big loop-carried buffer
-        # degrades kernel overlap, experiments/r2_defer.py) — kept only
-        # for layout experiments
-        assert not quant, "flat_stacked cache is dense-only"
-        shape = (cfg.n_layers, batch, s, cfg.n_kv_heads * cfg.head_dim)
-        return {"k": jnp.zeros(shape, dtype), "v": jnp.zeros(shape, dtype)}
     if stacked:
         shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim)
         if quant:
@@ -75,9 +66,8 @@ def init_cache(
 
             return {"k": QuantKV.zeros(shape), "v": QuantKV.zeros(shape)}
         return {"k": jnp.zeros(shape, dtype), "v": jnp.zeros(shape, dtype)}
-    # unstacked planes store FLAT (B, S, Hkv*D): the (.., Hkv, D) minor
-    # dims pad on TPU and every cache update then copies the whole plane
-    # (experiments/dus_alias.py; 27us x 44 planes/step at batch 32)
+    # unstacked planes store FLAT (B, S, Hkv*D): a token's write is one
+    # contiguous row, updated in place in the donated buffer
     shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
     if quant:
         from tpu_llm.ops.kv_cache import QuantKV
@@ -96,10 +86,10 @@ def unstack_layers(params: Params) -> Params:
     """Stacked (L, ...) layer params -> list of per-layer dicts.
 
     The lax.scan layer loop dynamic-slices every layer's weights out of
-    the stacked buffers each step — for quantized decode that slice COPY
-    doubled HBM traffic and serialized in front of each kernel (xprof:
-    ~28% of step time). Unstacked params are separate buffers the kernels
-    read in place; ``forward`` python-loops over them."""
+    the stacked buffers each step — for quantized decode a slice COPY
+    can double the weight bytes read in front of each kernel. Unstacked
+    params are separate buffers the kernels read in place; ``forward``
+    python-loops over them."""
     from tpu_llm.quant.qtensor import QTensor
 
     layers = params["layers"]
@@ -125,179 +115,27 @@ def unstack_layers(params: Params) -> Params:
 # -- forward -----------------------------------------------------------------
 
 def _attend(q, kc, vc, positions, offset):
-    """Prefill (T>1, scalar offset) goes through the flash kernel on TPU —
-    the einsum path materializes (B,T,H,S) scores, 0.5 GB at full context.
-    Decode (T=1), vector offsets (continuous batching), non-tiling shapes,
-    and CPU all use the einsum path."""
-    import os
+    """Attention over the dense cache. ``kernels.select`` picks the GPU
+    flash-decode kernel for one-token decode (it reads each row's cache
+    only up to that row's position; the einsum path streams all S slots)
+    and cuDNN flash attention for long prefill from position 0, over a
+    bf16 or int8 cache (the einsum path materialises (B, T, H, S) f32
+    scores). Everything else — int8 decode, float32, vector offsets,
+    CPU — takes the einsum path."""
+    from tpu_llm.kernels import attention as gpu_attention
+    from tpu_llm.kernels import select
 
-    from tpu_llm.ops.kv_cache import QuantKV
-
-    T, S, H = q.shape[1], kc.shape[1], q.shape[2]
-    scores_bytes = q.shape[0] * T * S * H * 4
-
-    # Decode (any batch) routes to the fused online-softmax kernel: ONE
-    # pallas call replaces the score/AV einsums + mask + softmax fusions,
-    # with O(pos) cache DMA PER ROW via pinned block indices. Round 1
-    # measured it slower than the einsum chain at batch 1; with the RoPE
-    # fold and unstacked fast path it wins at every probed point (1088 vs
-    # 1043 tok/s, experiments/r2_bench_like.py). For batched serving the
-    # win is structural: the einsum path streams the FULL preallocated
-    # (B, S, Hkv*D) planes every step (~369 MB/step at batch 32, S=1024)
-    # while the kernel's per-row index maps stop at each row's position.
-    # CPU/GPU stay on the einsum path (no Mosaic).
-    from tpu_llm.quant.linear import pallas_scope_disabled
-
-    B, D = q.shape[0], q.shape[3]
-    use_decode_flash = (
-        T == 1
-        and not isinstance(kc, QuantKV)
-        and kc.ndim == 3
-        and kc.dtype in (jnp.bfloat16, jnp.float32)
-        and jax.default_backend() not in ("cpu", "gpu")
-        and not os.environ.get("TPU_LLM_DISABLE_FLASH")
-        and not os.environ.get("TPU_LLM_DISABLE_PALLAS")
-        and not pallas_scope_disabled()
-        and D in (64, 128)
-        and kc.shape[2] % 128 == 0
-        and S % min(256, S) == 0
-    )
-    if use_decode_flash:
-        from tpu_llm.ops.flash_attention import flash_decode_attention
-
-        Hkv = kc.shape[2] // D
-        pos = positions.reshape(-1)
-        if pos.size == 1 and B > 1:   # scalar offset, batched rows
-            pos = jnp.broadcast_to(pos, (B,))
-        return flash_decode_attention(
-            q, kc.reshape(B, S, Hkv, D), vc.reshape(B, S, Hkv, D), pos,
-            chunk=min(256, S),   # short caches (S<256) chunk at S — the
-                                 # gate's S % min(256, S) == 0 admits them
-        )
-
-    use_flash = (
-        T > 1
-        and offset.ndim == 0
-        and jax.default_backend() not in ("cpu",)
-        and not os.environ.get("TPU_LLM_DISABLE_FLASH")
-        and not pallas_scope_disabled()
-        and T % min(256, T) == 0
-        and S % min(256, S) == 0
-        # einsum is faster while its (B,T,H,S) scores tensor is small;
-        # flash exists so long prefill doesn't materialize half a GB
-        and scores_bytes > 64 * 1024 * 1024
-    )
-    if use_flash:
-        from tpu_llm.ops.flash_attention import flash_gqa_attention
-
-        B, D = q.shape[0], q.shape[3]
-        out_dtype = q.dtype
-        if isinstance(kc, QuantKV):
-            # int8 cache: dequantize ONCE per prefill call (bf16, 2x the
-            # int8 plane bytes, amortized over the whole prompt) rather
-            # than fall to the einsum path and materialize the full
-            # (B,T,Hkv,G,S) score tensor — the blowup flash exists to
-            # avoid (~0.5 GB at full context)
-            from tpu_llm.ops.kv_cache import dequantize_kv
-
-            kc = dequantize_kv(kc, jnp.bfloat16, head_dim=D)
-            vc = dequantize_kv(vc, jnp.bfloat16, head_dim=D)
-            q = q.astype(jnp.bfloat16)
-        elif kc.ndim == 3:  # flat planes -> 4D view for the kernel's
-            # per-head index maps (one materialization per PREFILL call)
-            kc = kc.reshape(B, S, kc.shape[2] // D, D)
-            vc = vc.reshape(B, S, vc.shape[2] // D, D)
-        return flash_gqa_attention(q, kc, vc, offset).astype(out_dtype)
+    if select.decode_attention(q, kc):
+        return gpu_attention.decode_attention(q, kc, vc, positions)
+    if select.prefill_attention(q, kc, offset):
+        return gpu_attention.prefill_attention(q, kc, vc)
     return gqa_attention(q, kc, vc, positions)
-
-
-def _use_ffn_megakernel(cfg: LlamaConfig, x, lp) -> bool:
-    """One-kernel SwiGLU FFN (tpu_llm.quant.pallas_ffn): decode shapes
-    (<=8 rows), bf16 activations, quantized fused weights, on TPU.
-    Opt-in (TPU_LLM_FFN_MEGAKERNEL=1): measured neutral vs the two-kernel
-    path on v5e (380 vs 384 tok/s) — the phase-pinned block indices stop
-    Mosaic from prefetching w2 during phase A, offsetting the saved
-    launch. Kept as the base for a future double-buffered variant."""
-    import os
-
-    if not os.environ.get("TPU_LLM_FFN_MEGAKERNEL"):
-        return False
-    if os.environ.get("TPU_LLM_DISABLE_PALLAS") or x.dtype != jnp.bfloat16:
-        return False
-    from tpu_llm.quant.linear import pallas_scope_disabled
-
-    if pallas_scope_disabled():
-        return False
-    if jax.default_backend() in ("cpu", "gpu"):
-        return False
-    B, T, _ = x.shape
-    if B * T > 8:
-        return False
-    from tpu_llm.quant.pallas_ffn import ffn_tiles_ok
-
-    if cfg.act != "silu":
-        return False   # the megakernel's gate is SiLU-only
-    return ffn_tiles_ok(cfg.dim, cfg.hidden_dim, lp["w13"], lp.get("w2"))
 
 
 def _norm(cfg: LlamaConfig, x, lp, prefix: str):
     if cfg.use_layernorm:
         return layernorm(x, lp[f"{prefix}_norm"], lp[f"{prefix}_norm_b"], cfg.norm_eps)
     return rmsnorm(x, lp[f"{prefix}_norm"], cfg.norm_eps)
-
-
-def _norm_folded(cfg: LlamaConfig, x, lp, prefix: str):
-    """Like _norm, but (opt-in: TPU_LLM_NORM_FOLD=1) for rmsnorm models
-    the weight multiply is returned separately as the matmul row_scale
-    and streamed by the fused dequant kernels.
-
-    Shipped OFF: the r4 probe showed the separate per-layer f32[E] norm
-    reads cost ~500us/step at 7B (150.2 -> 162.4 tok/s with the reads
-    removed, experiments/r4_7b_norm_probe.py), but folding them into the
-    kernels only relocates the same latency-bound small DMAs (151.1) and
-    costs TinyLlama 2% (1187 -> 1164) — the win needs the transfers
-    BATCHED, not moved (r4_norm_stack_probe.py)."""
-    import os
-
-    if (cfg.use_layernorm or cfg.parallel_block
-            or not os.environ.get("TPU_LLM_NORM_FOLD")):
-        # parallel blocks share the normed h between attn and mlp — keep
-        # it weighted so both consumers see the same tensor
-        return _norm(cfg, x, lp, prefix), None
-    return rmsnorm(x, None, cfg.norm_eps), lp[f"{prefix}_norm"]
-
-
-def _use_flash_fused(q, kc) -> bool:
-    """Gate for the fused decode attention + in-kernel cache-append
-    kernel: TPU, dense flat planes, lane-aligned head slices, chunkable
-    cache, and a cache length divisible by the dtype's tile-aligned row
-    group (the kernel appends by read-modify-writing that group —
-    Mosaic rejects single-row HBM slices)."""
-    import os
-
-    from tpu_llm.ops.kv_cache import QuantKV
-
-    if os.environ.get("TPU_LLM_DISABLE_PALLAS") or \
-            os.environ.get("TPU_LLM_DISABLE_FLASH"):
-        return False
-    from tpu_llm.quant.linear import pallas_scope_disabled
-
-    if pallas_scope_disabled():
-        return False
-    if jax.default_backend() in ("cpu", "gpu"):
-        return False
-    if isinstance(kc, QuantKV) or kc.ndim != 3:
-        return False
-    if kc.dtype not in (jnp.float32, jnp.bfloat16):
-        return False
-    from tpu_llm.ops.flash_attention import _group_rows
-
-    B, T, H, D = q.shape
-    S, HkvD = kc.shape[1], kc.shape[2]
-    chunk = min(256, S)
-    gr = _group_rows(kc.dtype)
-    return (T == 1 and D in (64, 128) and HkvD % 128 == 0
-            and S % chunk == 0 and S % gr == 0 and chunk % gr == 0)
 
 
 def _expert_slice(w, e):
@@ -313,7 +151,7 @@ def _expert_slice(w, e):
     return take(w)
 
 
-def _moe_ffn(cfg: LlamaConfig, x, lp, rs_ffn=None):
+def _moe_ffn(cfg: LlamaConfig, x, lp):
     """Mixture-of-experts FFN (Mixtral family, SURVEY scope extension).
 
     Router: softmax over all experts, top-k, selected weights
@@ -323,8 +161,7 @@ def _moe_ffn(cfg: LlamaConfig, x, lp, rs_ffn=None):
     Three compute strategies, chosen by token count (all static-shape):
     - single-token decode: GATHER the k selected experts' stacked weight
       planes by traced index and run k FFNs — HBM reads scale with k,
-      not n_experts (the TPU analogue of llama.cpp's per-token expert
-      dispatch).
+      not n_experts (llama.cpp's per-token expert dispatch).
     - small-batch decode (1 < B*T and B*T*k < n_experts): gather the
       UNION of selected experts (worst-case B*T*k uniques) and run each
       over the whole batch — expert HBM reads scale with the union, not
@@ -333,22 +170,21 @@ def _moe_ffn(cfg: LlamaConfig, x, lp, rs_ffn=None):
     - prefill / large-batch: the dense-masked form — every expert
       processes every token, outputs combined by the (B, T, Ex) gate
       matrix. With tokens >> experts all experts are live anyway, the
-      all-expert einsum keeps the MXU on large matmuls, and the stacked
+      all-expert einsum keeps the matmuls large, and the stacked
       expert weights shard over the mesh "expert" axis (EP) with GSPMD
       inserting the combine psum.
     """
     B, T, E = x.shape
     k = cfg.n_experts_used
     act = gelu if cfg.act == "gelu" else silu
-    logits = matmul(x, lp["router"], out_dtype=jnp.float32,
-                    row_scale=rs_ffn)                     # (B, T, Ex)
+    logits = matmul(x, lp["router"], out_dtype=jnp.float32)  # (B, T, Ex)
     probs = jax.nn.softmax(logits, axis=-1)
     topw, topi = jax.lax.top_k(probs, k)                  # (B, T, k)
     topw = topw / jnp.sum(topw, axis=-1, keepdims=True)
 
     def expert_ffn(w1, w3, w2, xin):
-        g = matmul(xin, w1, row_scale=rs_ffn)
-        u = matmul(xin, w3, row_scale=rs_ffn)
+        g = matmul(xin, w1)
+        u = matmul(xin, w3)
         return matmul(act(g) * u, w2)
 
     if B * T == 1:
@@ -403,9 +239,8 @@ def _kv_window(cache, w: int):
     Attention over the window equals full-cache attention whenever every
     attended position < w: masked slots past the window carry exactly
     zero softmax weight, so dropping them changes nothing — but the
-    attention einsums stop streaming the (padded) tail of the plane,
-    which at early positions is most of its bytes (~85us/step of
-    einsum time at S=1024, experiments/r2_trace.py)."""
+    attention einsums stop streaming the tail of the plane, which at
+    early positions is most of its bytes."""
     from tpu_llm.ops.kv_cache import QuantKV
 
     if isinstance(cache, QuantKV):
@@ -417,7 +252,7 @@ def _kv_window(cache, w: int):
 
 def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset,
            attn_fn=None, kv_offset=None, update_fn=None, rope_cs=None,
-           defer_kv=False, kv_window=None, reduce_fn=None):
+           kv_window=None, reduce_fn=None):
     # ``reduce_fn`` (tensor parallelism under shard_map): applied to the
     # row-parallel partial sums right after the wo and w2 matmuls —
     # Megatron's two psums per layer — BEFORE the replicated bo/b2 bias
@@ -426,7 +261,7 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset,
     # named scopes reproduce the reference's five timing buckets
     # (llama2.f90:538,561,599,622,638) as XProf trace annotations
     B, T, E = x.shape
-    h, rs_attn = _norm_folded(cfg, x, lp, "attn")
+    h = _norm(cfg, x, lp, "attn")
 
     with jax.named_scope("qkv"):
         if "wqkv" in lp:
@@ -434,14 +269,14 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset,
             # read_ggml.f90:265; call count sets the decode floor)
             KV = cfg.kv_dim
             Q = cfg.q_dim
-            qkv = matmul(h, lp["wqkv"], row_scale=rs_attn)
+            qkv = matmul(h, lp["wqkv"])
             q = qkv[..., :Q]
             k = qkv[..., Q : Q + KV]
             v = qkv[..., Q + KV :]
         else:
-            q = matmul(h, lp["wq"], row_scale=rs_attn)
-            k = matmul(h, lp["wk"], row_scale=rs_attn)
-            v = matmul(h, lp["wv"], row_scale=rs_attn)
+            q = matmul(h, lp["wq"])
+            k = matmul(h, lp["wk"])
+            v = matmul(h, lp["wv"])
             if "bq" in lp:
                 q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
 
@@ -453,8 +288,7 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset,
         # angles are position-only — computed ONCE per step by forward()
         # and shared by every layer. Neutral in the unstacked path (XLA
         # CSEs the duplicate sin/cos), but inside lax.scan the angle
-        # computation would otherwise rerun every layer iteration
-        # (~47us/step of pure VPU time, experiments/r2_phases.py).
+        # computation would otherwise rerun every layer iteration.
         if rope_cs is None:
             rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta,
                                   cfg.rope_variant, cfg.rope_dims,
@@ -464,35 +298,12 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset,
         k = _rotate(k, cos, sin, cfg.rope_variant, cfg.rope_dims)
 
     with jax.named_scope("attention"):
-        if defer_kv:
-            # attend against the STALE cache + explicit current k/v. On
-            # TPU with tiling shapes, ONE fused kernel does attention AND
-            # the cache append via aliased planes (flash_decode_fused);
-            # elsewhere gqa_attention_deferred + the caller's per-layer
-            # write. Either way the 44 tiny per-layer DUS+einsum op chain
-            # collapses (~4us/layer of per-op overhead).
-            k_flat = k.reshape(B, T, cfg.kv_dim)
-            v_flat = v.reshape(B, T, cfg.kv_dim)
-            if _use_flash_fused(q, kc):
-                from tpu_llm.ops.flash_attention import flash_decode_fused
-
-                attn, kc, vc = flash_decode_fused(
-                    q, kc, vc, k_flat, v_flat, positions)
-            else:
-                from tpu_llm.ops.attention import gqa_attention_deferred
-
-                ka, va = ((kc, vc) if kv_window is None else
-                          (_kv_window(kc, kv_window), _kv_window(vc, kv_window)))
-                attn = gqa_attention_deferred(q, ka, va, k_flat, v_flat,
-                                              positions)
-                kc, vc = k_flat, v_flat
-        else:
-            kc, vc = (update_fn or update_kv_cache)(
-                kc, vc, k, v, offset if kv_offset is None else kv_offset
-            )
-            ka, va = ((kc, vc) if kv_window is None else
-                      (_kv_window(kc, kv_window), _kv_window(vc, kv_window)))
-            attn = (attn_fn or _attend)(q, ka, va, positions, offset)
+        kc, vc = (update_fn or update_kv_cache)(
+            kc, vc, k, v, offset if kv_offset is None else kv_offset
+        )
+        ka, va = ((kc, vc) if kv_window is None else
+                  (_kv_window(kc, kv_window), _kv_window(vc, kv_window)))
+        attn = (attn_fn or _attend)(q, ka, va, positions, offset)
         attn = attn.reshape(B, T, cfg.q_dim)
         attn_out = matmul(attn, lp["wo"])
         if reduce_fn is not None:
@@ -501,29 +312,17 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset,
             attn_out = attn_out + lp["bo"]
 
     if cfg.parallel_block:
-        mlp_in, rs_ffn = h, None        # attn and MLP share the input norm
+        mlp_in = h                      # attn and MLP share the input norm
     else:
         x = x + attn_out
-        mlp_in, rs_ffn = _norm_folded(cfg, x, lp, "ffn")
+        mlp_in = _norm(cfg, x, lp, "ffn")
 
     with jax.named_scope("ffn"):
         if cfg.n_experts:
             assert reduce_fn is None, \
                 "shard_map TP reduce is not wired for MoE layers (EP/TP " \
                 "MoE shards through the GSPMD path)"
-            mlp_out = _moe_ffn(cfg, mlp_in, lp, rs_ffn)
-            if cfg.parallel_block:
-                return x + attn_out + mlp_out, kc, vc
-            return x + mlp_out, kc, vc
-        if cfg.gated_mlp and "w13" in lp and _use_ffn_megakernel(cfg, x, lp):
-            from tpu_llm.quant.pallas_ffn import ffn_fused_pallas
-
-            if rs_ffn is not None:     # megakernel takes weighted input
-                mlp_in = (mlp_in.astype(jnp.float32)
-                          * rs_ffn).astype(mlp_in.dtype)
-            mlp_out = ffn_fused_pallas(mlp_in, lp["w13"], lp["w2"])
-            if reduce_fn is not None:
-                mlp_out = reduce_fn(mlp_out)
+            mlp_out = _moe_ffn(cfg, mlp_in, lp)
             if cfg.parallel_block:
                 return x + attn_out + mlp_out, kc, vc
             return x + mlp_out, kc, vc
@@ -531,14 +330,14 @@ def _block(cfg: LlamaConfig, x, lp, kc, vc, positions, offset,
         if cfg.gated_mlp and "w13" in lp:
             F = cfg.hidden_dim
             # fused gate|up (read_ggml.f90:340)
-            h13 = matmul(mlp_in, lp["w13"], row_scale=rs_ffn)
+            h13 = matmul(mlp_in, lp["w13"])
             mid = gate_act(h13[..., :F]) * h13[..., F:]
         elif cfg.gated_mlp:
-            gate = matmul(mlp_in, lp["w1"], row_scale=rs_ffn)
-            up = matmul(mlp_in, lp["w3"], row_scale=rs_ffn)
+            gate = matmul(mlp_in, lp["w1"])
+            up = matmul(mlp_in, lp["w3"])
             mid = gate_act(gate) * up
         else:
-            mid = matmul(mlp_in, lp["w3"], row_scale=rs_ffn)
+            mid = matmul(mlp_in, lp["w3"])
             if "b3" in lp:
                 mid = mid + lp["b3"]
             mid = gelu(mid) if cfg.act == "gelu" else silu(mid)
@@ -603,8 +402,6 @@ def forward(
     act_constraint=None,     # residual-stream sharding constraint (SP prefill)
     update_fn=None,          # override the cache write (CP decode's
                              # ownership-masked write)
-    defer_kv=False,          # batch all layers' cache writes into one DUS
-                             # (decode T==1, flat-stacked dense cache only)
     kv_window=None,          # static int: attend only to cache slots [0, w)
                              # — exact when all positions < w (_kv_window)
     reduce_fn=None,          # TP partial-sum reduce (psum) after wo / w2 —
@@ -630,54 +427,19 @@ def forward(
     rope_cs = rope_angles(positions, cfg.head_dim, cfg.rope_theta,
                           cfg.rope_variant, cfg.rope_dims, cfg.rope_scaling)
     layers = params["layers"]
-    if defer_kv:
-        assert T == 1 and offset.ndim == 0 and isinstance(layers, (list, tuple))
     if isinstance(layers, (list, tuple)):
         # unstacked fast path: direct per-layer buffers, no slice copies
-        flat_stacked = (not isinstance(cache["k"], (list, tuple))
-                        and getattr(cache["k"], "ndim", 0) == 4)
         k_new, v_new = [], []
         for i, lp in enumerate(layers):
             x, kc, vc = _block(cfg, x, lp, cache["k"][i], cache["v"][i],
                                positions, offset,
                                attn_fn=attn_fn, kv_offset=kv_offset,
                                update_fn=update_fn, rope_cs=rope_cs,
-                               defer_kv=defer_kv, kv_window=kv_window,
-                               reduce_fn=reduce_fn)
+                               kv_window=kv_window, reduce_fn=reduce_fn)
             if act_constraint is not None:
                 x = act_constraint(x)
-            if defer_kv and not flat_stacked and \
-                    kc.shape != cache["k"][i].shape:
-                # deferred write, per-layer planes (_block returned this
-                # step's k/v, not updated planes — the flash append kernel
-                # updates in-kernel): the DUS happens here, OFF the
-                # attention dependency chain (attention reads the stale
-                # plane; the write only gates the NEXT step)
-                off32 = offset.astype(jnp.int32)
-                zero = jnp.zeros((), jnp.int32)
-                idx = (zero, off32, zero)
-                kc = jax.lax.dynamic_update_slice(
-                    cache["k"][i], kc.astype(cache["k"][i].dtype), idx)
-                vc = jax.lax.dynamic_update_slice(
-                    cache["v"][i], vc.astype(cache["v"][i].dtype), idx)
             k_new.append(kc)
             v_new.append(vc)
-        if defer_kv and flat_stacked:
-            # ONE batched write per plane for all layers' current k/v
-            zero = jnp.zeros((), jnp.int32)
-            idx = (zero, zero, offset.astype(jnp.int32), zero)
-            x = apply_final_norm(params, cfg, x)
-            return x, {
-                "k": jax.lax.dynamic_update_slice(
-                    cache["k"], jnp.stack(k_new).astype(cache["k"].dtype), idx),
-                "v": jax.lax.dynamic_update_slice(
-                    cache["v"], jnp.stack(v_new).astype(cache["v"].dtype), idx),
-            }
-        if flat_stacked:
-            # flat-stacked cache through the non-deferred path (prefill
-            # before a defer_kv decode loop): keep the stacked structure
-            k_new = jnp.stack(k_new)
-            v_new = jnp.stack(v_new)
     else:
         x, k_new, v_new = run_layers(
             layers, cfg, x, cache["k"], cache["v"], positions, offset,
@@ -707,14 +469,15 @@ def lm_head(params: Params, cfg: LlamaConfig, x: jax.Array) -> jax.Array:
     with jax.named_scope("classifier"):
         if params.get("wcls") is not None:
             # the classifier matmul runs in x's dtype: f32 activations keep
-            # the exact reference numerics; bf16 serving gets ONE MXU pass
-            # with f32 accumulation instead of the 6-pass f32-HIGHEST path.
-            # out_dtype=f32 hands back the accumulator un-rounded.
+            # the exact reference numerics; bf16 serving gets one bf16
+            # pass with f32 accumulation. out_dtype=f32 hands back the
+            # accumulator un-rounded.
             logits = matmul(x, params["wcls"], out_dtype=jnp.float32)
         else:  # tied embeddings
             logits = jnp.matmul(
                 x.astype(jnp.float32),
                 params["tok_emb"].T.astype(jnp.float32),
+                precision=jax.lax.Precision.HIGHEST,
                 preferred_element_type=jnp.float32,
             )
         if "bcls" in params:
@@ -728,12 +491,11 @@ def decode_step(
     token: jax.Array,        # (B,) int32
     cache: Cache,
     pos: jax.Array,          # scalar int32
-    defer_kv: bool = False,
     kv_window=None,
 ) -> Tuple[jax.Array, Cache]:
     """One decode step: (B,) token ids at position ``pos`` -> (B, V) logits."""
     x, cache = forward(params, cfg, token[:, None], cache, pos,
-                       defer_kv=defer_kv, kv_window=kv_window)
+                       kv_window=kv_window)
     logits = lm_head(params, cfg, x)[:, 0, :]
     return logits, cache
 
@@ -834,8 +596,8 @@ def _load_weight(gguf, name: str, dtype_policy: str, transpose: bool = True):
         and t.ggml_type not in (gg.GGML_F32, gg.GGML_F16)
     ):
         # 'native' for quantized kinds outside the QTensor list above
-        # (e.g. iq-series): dequantize to bf16, not f32 — half the HBM,
-        # and bf16 is what the MXU ingests anyway
+        # (e.g. iq-series): dequantize to bf16, not f32 — half the device
+        # memory, and the matmuls take bf16 operands anyway
         out = out.astype(jnp.bfloat16)
     return out
 

@@ -18,7 +18,7 @@ Prefill is time-parallel: the first-order linear recurrence
 state_t = dA_t·state_{t-1} + dB_t·x_t is evaluated with
 ``jax.lax.associative_scan`` (combine (a1,b1)∘(a2,b2) = (a2·a1, a2·b1+b2)),
 the causal depthwise conv as a sum of shifted slices, and every projection
-as one full-sequence MXU matmul — the TPU answer to the reference's
+as one full-sequence matmul — the batched answer to the reference's
 token-at-a-time prefill (``ssm/mamba.f90:413-415``). The exact sequential
 recurrence is kept (``forward(..., sequential=True)``) as the numerics
 oracle and the T=1 decode step.
@@ -60,8 +60,7 @@ def cast_weights(params: Params, dtype=jnp.bfloat16) -> Params:
     """Weight-only dtype cast (serving mode): every f32 weight leaf ->
     ``dtype``; the recurrent state and all matmul accumulations stay f32
     (``preferred_element_type`` throughout the mixer), so this halves the
-    HBM bytes per token — 1460 -> 2656 tok/s on Mamba-130M decode
-    (experiments/mamba_unstack.py) — at weight-rounding cost only. The
+    weight bytes read per token at weight-rounding cost only. The
     f32 default remains the reference-parity path (ssm/mamba.f90 is
     f32)."""
     return jax.tree_util.tree_map(
@@ -74,8 +73,7 @@ def unstack_layers(params: Params) -> Params:
 
     Same rationale as llama.unstack_layers: the lax.scan layer loop
     dynamic-slices every layer's weights out of the stacked buffers each
-    decode step — a copy that costs ~20% of Mamba-130M step time
-    (1462 vs 1176 tok/s, experiments/mamba_unstack.py). Pair with
+    decode step — a copy of every weight. Pair with
     ``init_state(..., stacked=False)``."""
     layers = params["layers"]
     if isinstance(layers, (list, tuple)):
@@ -91,12 +89,8 @@ def split_projections(params: Params) -> Params:
     in_proj (E, 2di) -> in_proj_x + in_proj_z; x_proj (di, dr+2ds) ->
     xp_dt + xp_b + xp_c.
 
-    Available as an opt-in layout transform; measured NEUTRAL on chip
-    (f32 1451 -> 1444 tok/s, bf16 2675 -> 2575): the activation-split
-    slice ops it removes reappear as copy ops feeding the now-separate
-    matmuls — Mamba-130M f32 decode is already at ~91% of its honest
-    515 MB/token roofline, so data-movement op count, not layout, is
-    what remains (experiments/r3_mamba_trace.py). Works on stacked
+    Available as an opt-in layout transform; its effect on the GPU has
+    not been measured. Works on stacked
     (L, ...) or unstacked layer params; _mixer_step/_mixer_scan accept
     either layout."""
     def split_layer(lp, di, dr, ds):

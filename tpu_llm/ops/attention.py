@@ -6,9 +6,10 @@ truncates to positions 1..pos (``llama2.f90:468-478``). Note the reference's
 literal kv-head slice is buggy (empty for most heads — SURVEY.md §2 #13);
 we implement the *intended* GQA: query head h reads kv head h // kv_groups.
 
-TPU-first design: a single batched einsum formulation that serves both
+Plain path: a single batched einsum formulation that serves both
 prefill (T > 1, causal) and decode (T = 1) so XLA maps the contractions to
-the MXU and fuses mask+softmax. KV cache is a static-shape array updated
+matmuls and fuses mask+softmax. (GPU kernels for decode and long prefill
+live in tpu_llm.kernels and are chosen by tpu_llm.kernels.select.) KV cache is a static-shape array updated
 with dynamic_update_slice; masking by position replaces the reference's
 truncation (numerically identical through softmax).
 """
@@ -21,6 +22,14 @@ import jax
 import jax.numpy as jnp
 
 _NEG_INF = -0.7 * float(jnp.finfo(jnp.float32).max)
+
+
+def _einsum(spec, a, b, **kw):
+    """einsum that keeps float32 contractions at float32: GPUs run f32
+    dots in TF32 unless HIGHEST is asked for."""
+    f32 = jnp.result_type(a, b) == jnp.float32
+    return jnp.einsum(spec, a, b, precision=jax.lax.Precision.HIGHEST
+                      if f32 else None, **kw)
 
 
 def update_kv_cache(
@@ -49,9 +58,8 @@ def update_kv_cache(
         ks_c, vs_c = _update_scales(k_cache.s, v_cache.s, ks, vs, offset)
         return QuantKV(kq_c, ks_c), QuantKV(vq_c, vs_c)
     if k_cache.ndim == 3 and k_new.ndim == 4:
-        # flat storage (see QuantKV.zeros / llama.init_cache): the 4D
-        # (.., Hkv, D) layout is padded on TPU and every cache update copies
-        # the whole plane (experiments/dus_alias.py)
+        # flat storage (see QuantKV.zeros / llama.init_cache): one
+        # contiguous row per token, written in place
         B, T, Hkv, D = k_new.shape
         k_new = k_new.reshape(B, T, Hkv * D)
         v_new = v_new.reshape(B, T, Hkv * D)
@@ -76,7 +84,7 @@ def update_kv_cache(
 
 def _update_scales_flat(ks_c, vs_c, ks, vs, offset):
     """Write (B, Hkv, T) scale slabs into (B, Hkv, S) planes at lane
-    offset ``offset`` (in-place — experiments/dus_alias.py)."""
+    offset ``offset`` (in place)."""
     offset = offset.astype(jnp.int32)
     if offset.ndim == 0:
         zero = jnp.zeros((), dtype=jnp.int32)
@@ -166,10 +174,10 @@ def gqa_attention(
     G = H // Hkv
     scale = 1.0 / jnp.sqrt(jnp.float32(D))
 
-    # bf16 q + bf16 cache contract directly on the MXU with f32 accumulation
+    # bf16 q + bf16 cache contract directly with f32 accumulation
     # (preferred_element_type) — casting the FULL cache to f32 first
     # materializes 2x the cache bytes per layer per token, which at decode
-    # shapes is pure HBM overhead. f32 inputs keep the exact f32 path.
+    # shapes is pure memory traffic. f32 inputs keep the exact f32 path.
     bf16_inputs = (
         q.dtype == jnp.bfloat16
         and k_cache.dtype == jnp.bfloat16
@@ -182,7 +190,7 @@ def gqa_attention(
         v_cache = v_cache.astype(jnp.float32)
 
     # scores: (B, T, Hkv, G, S), f32 accumulation either way
-    scores = jnp.einsum(
+    scores = _einsum(
         "bthgd,bshd->bthgs", qg, k_cache, preferred_element_type=jnp.float32
     ) * scale
 
@@ -191,7 +199,7 @@ def gqa_attention(
     att = jax.nn.softmax(scores, axis=-1)
     if bf16_inputs:
         att = att.astype(jnp.bfloat16)
-    out = jnp.einsum(
+    out = _einsum(
         "bthgs,bshd->bthgd", att, v_cache, preferred_element_type=jnp.float32
     )
     return out.reshape(B, T, H, D).astype(q.dtype)
@@ -230,7 +238,7 @@ def _pick_own_block(full, Hkv: int, G: int):
     D = HkvD // Hkv
     sel = (jnp.arange(H, dtype=jnp.int32)[:, None] // G
            == jnp.arange(Hkv, dtype=jnp.int32)[None, :])
-    return jnp.einsum(
+    return _einsum(
         "bthkd,hk->bthd", full.reshape(B, T, H, Hkv, D),
         sel.astype(full.dtype), preferred_element_type=jnp.float32,
     )
@@ -240,7 +248,7 @@ def _gqa_attention_flat(q, k_cache, v_cache, q_positions, kv_lengths):
     """Dense attention against FLAT (B, S, Hkv*D) cache planes.
 
     The contraction runs over the full Hkv*D axis with a block-diagonal
-    q (exact — zero columns add zeros), trading Hkv x more MXU MACs
+    q (exact — zero columns add zeros), trading Hkv x more MACs
     (trivial at decode shapes) for a cache layout whose updates are
     in-place (see update_kv_cache)."""
     B, T, H, D = q.shape
@@ -260,88 +268,17 @@ def _gqa_attention_flat(q, k_cache, v_cache, q_positions, kv_lengths):
         v_cache = v_cache.astype(jnp.float32)
     qbd = _block_diag_q(q, Hkv, cdt)
 
-    scores = jnp.einsum(
+    scores = _einsum(
         "bthc,bsc->bths", qbd, k_cache, preferred_element_type=jnp.float32
     ) * scale                                             # (B, T, H, S)
 
     scores = _causal_mask(scores, q_positions, S, kv_lengths)
 
     att = jax.nn.softmax(scores, axis=-1)
-    full = jnp.einsum(
+    full = _einsum(
         "bths,bsc->bthc", att.astype(cdt), v_cache,
         preferred_element_type=jnp.float32,
     )                                                     # (B, T, H, Hkv*D)
-    return _pick_own_block(full, Hkv, G).astype(q.dtype)
-
-
-def gqa_attention_deferred(
-    q: jax.Array,            # (B, T, H, D), decode T == 1
-    k_cache: jax.Array,      # flat (B, S, Hkv*D) dense plane, STALE at pos
-    v_cache: jax.Array,
-    k_cur: jax.Array,        # (B, T, Hkv*D) — this step's k/v, NOT yet written
-    v_cur: jax.Array,
-    q_positions: jax.Array,  # (T,) or (B, T)
-) -> jax.Array:
-    """Decode attention with the cache write DEFERRED.
-
-    The 44 per-layer dynamic_update_slice ops cost ~1.4us each of pure
-    per-op overhead at batch 1 (~45us/step, experiments/r2_trace.py).
-    Here attention reads the STALE cache (positions < pos) and handles the
-    current token's k/v explicitly: its score replaces the (masked) slot
-    at ``pos`` and its value enters via a rank-1 add after the AV
-    contraction. The caller batches all layers' writes into ONE
-    dynamic_update_slice on a stacked (L, B, S, Hkv*D) cache at the end
-    of the step. Same math as write-then-attend (the inserted score and
-    value ARE what the cache would have held)."""
-    B, T, H, D = q.shape
-    S, HkvD = k_cache.shape[1], k_cache.shape[2]
-    Hkv = HkvD // D
-    G = H // Hkv
-    scale = 1.0 / jnp.sqrt(jnp.float32(D))
-
-    bf16_inputs = (
-        q.dtype == jnp.bfloat16
-        and k_cache.dtype == jnp.bfloat16
-        and v_cache.dtype == jnp.bfloat16
-    )
-    cdt = jnp.bfloat16 if bf16_inputs else jnp.float32
-    if not bf16_inputs:
-        k_cache = k_cache.astype(jnp.float32)
-        v_cache = v_cache.astype(jnp.float32)
-    qbd = _block_diag_q(q, Hkv, cdt)                       # (B, T, H, Hkv*D)
-
-    scores = jnp.einsum(
-        "bthc,bsc->bths", qbd, k_cache, preferred_element_type=jnp.float32
-    ) * scale                                              # (B, T, H, S)
-    score_cur = jnp.einsum(
-        "bthc,btc->bth", qbd, k_cur.astype(cdt),
-        preferred_element_type=jnp.float32,
-    ) * scale                                              # (B, T, H)
-
-    qp = q_positions[None, :] if q_positions.ndim == 1 else q_positions
-    s_idx = jnp.arange(S, dtype=jnp.int32)
-    # insertion slot clamps at S-1: a position past the (possibly
-    # windowed) cache mirrors what the write-then-attend path computes
-    # after dynamic_update_slice clamps the write — the current token's
-    # score/value still participate instead of silently dropping out
-    # (callers uphold pos < S; this makes the out-of-contract case match
-    # the dense clamped semantics rather than be wrong differently)
-    is_cur = s_idx[None, None, :] == jnp.minimum(qp, S - 1)[:, :, None]
-    visible = s_idx[None, None, :] <= qp[:, :, None]
-    scores = jnp.where(is_cur[:, :, None, :], score_cur[..., None], scores)
-    scores = jnp.where(visible[:, :, None, :], scores, _NEG_INF)
-
-    att = jax.nn.softmax(scores, axis=-1)
-    att_cur = jnp.sum(
-        att * is_cur[:, :, None, :].astype(att.dtype), axis=-1
-    )                                                      # (B, T, H)
-    att_cache = att * (~is_cur)[:, :, None, :].astype(att.dtype)
-    full = jnp.einsum(
-        "bths,bsc->bthc", att_cache.astype(cdt), v_cache,
-        preferred_element_type=jnp.float32,
-    ) + att_cur[..., None].astype(jnp.float32) * v_cur[:, :, None, :].astype(
-        jnp.float32
-    )                                                      # (B, T, H, Hkv*D)
     return _pick_own_block(full, Hkv, G).astype(q.dtype)
 
 
@@ -359,7 +296,7 @@ def _gqa_attention_int8_flat(q, k_cache, v_cache, q_positions, kv_lengths):
 
     cdt = jnp.bfloat16 if q.dtype == jnp.bfloat16 else jnp.float32
     qbd = _block_diag_q(q, Hkv, cdt)
-    scores = jnp.einsum(
+    scores = _einsum(
         "bthc,bsc->bths", qbd, k_cache.q.astype(cdt),
         preferred_element_type=jnp.float32,
     )
@@ -374,7 +311,7 @@ def _gqa_attention_int8_flat(q, k_cache, v_cache, q_positions, kv_lengths):
 
     att = jax.nn.softmax(scores, axis=-1)
     att = att * head_scales(v_cache.s)[:, None]
-    full = jnp.einsum(
+    full = _einsum(
         "bths,bsc->bthc", att.astype(cdt), v_cache.q.astype(cdt),
         preferred_element_type=jnp.float32,
     )
@@ -404,7 +341,7 @@ def _gqa_attention_int8(q, k_cache, v_cache, q_positions, kv_lengths):
     qg = q.reshape(B, T, Hkv, G, D).astype(cdt)
     # QK in the compute dtype (int8->cdt widening fuses into the operand
     # read); per-(s, h) K scale applied to the score MATRIX, not the cache
-    scores = jnp.einsum(
+    scores = _einsum(
         "bthgd,bshd->bthgs", qg, k_cache.q.astype(cdt),
         preferred_element_type=jnp.float32,
     )
@@ -415,7 +352,7 @@ def _gqa_attention_int8(q, k_cache, v_cache, q_positions, kv_lengths):
     att = jax.nn.softmax(scores, axis=-1)
     # fold the V scale into the attention weights before the AV dot
     att = att * v_cache.s[:, None, :, None, :].transpose(0, 1, 4, 3, 2)
-    out = jnp.einsum(
+    out = _einsum(
         "bthgs,bshd->bthgd", att.astype(cdt), v_cache.q.astype(cdt),
         preferred_element_type=jnp.float32,
     )

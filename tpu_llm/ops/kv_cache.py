@@ -8,9 +8,9 @@ int8 with one f32 scale per (token, kv-head) vector halves-to-quarters the
 cache's HBM footprint and read traffic vs bf16/f32 at <0.5% attention-score
 error (each 64-dim head vector quantized to its own absmax/127 step).
 
-TPU-first factorization: attention never dequantizes the cache. The score
-dot contracts q (bf16) against the int8 K plane directly (int8->bf16
-widening fuses into the MXU operand read) and the per-(token, head) scale
+Factorization: attention never dequantizes the cache. The score dot
+contracts q (bf16) against the int8 K plane directly (the int8->bf16
+widening fuses into the operand read) and the per-(token, head) scale
 is applied to the (..., S) score matrix afterwards — S multiplies per head
 instead of S x D. Same trick on the value side: the scale folds into the
 attention weights before the AV contraction.
@@ -56,11 +56,8 @@ class QuantKV:
     @classmethod
     def zeros(cls, shape, *_ignored, flat: bool = False) -> "QuantKV":
         """``flat=True`` stores the logical (B, S, Hkv, D) plane as
-        (B, S, Hkv*D) int8 with kv-head-major scales (B, Hkv, S): the
-        (.., 4, 64) minor dims of TinyLlama-class caches force a padded
-        TPU layout on which XLA copies the WHOLE plane per
-        dynamic_update_slice (27us/plane at batch 32 —
-        experiments/dus_alias.py); the flat layout updates in place."""
+        (B, S, Hkv*D) int8 with kv-head-major scales (B, Hkv, S): one
+        contiguous row per token, updated in place."""
         if flat:
             *lead, s_len, hkv, d = shape
             return cls(

@@ -7,8 +7,8 @@ Numerics pinned to the reference:
 - LayerNorm with bias for the phi-2 architecture (not in the master snapshot;
   dev/phi2 capability, SURVEY.md §7 step 8).
 
-Norms are computed in float32 regardless of storage dtype and cast back —
-on TPU the VPU does these fused into the surrounding matmuls by XLA.
+Norms are computed in float32 regardless of storage dtype and cast back;
+XLA fuses them with their neighbouring elementwise ops.
 """
 
 from __future__ import annotations
@@ -20,11 +20,9 @@ import jax.numpy as jnp
 def rmsnorm(x: jax.Array, w, eps: float = 1e-5) -> jax.Array:
     """RMS-normalize the last axis of ``x`` and scale by ``w``.
 
-    ``w=None`` skips the weight multiply — the caller folds it into the
-    next projection (models/llama._block passes it to matmul as
-    ``row_scale`` so the fused kernels stream it; at 32-layer scale the
-    separate per-layer weight reads cost ~500us/step of latency-bound
-    VMEM prefetch copies, experiments/r4_7b_norm_probe.py)."""
+    ``w=None`` skips the weight multiply: the layer's norm weight was
+    folded into the next projection's weights
+    (``quant.convert_params.fold_norms_requant``)."""
     xf = x.astype(jnp.float32)
     ms = jnp.mean(xf * xf, axis=-1, keepdims=True)
     out = xf * jax.lax.rsqrt(ms + eps)

@@ -8,23 +8,24 @@ sequence to its blocks through an int32 block table, so HBM scales with
 tokens actually resident, sequences can grow past any per-slot
 preallocation, and blocks can be shared (prefix caching) or migrated.
 
-TPU-first layout:
-- pool: (n_blocks, block_size, Hkv*D) per layer — flat minor dim, so a
-  single-token write touches one (1, 1, Hkv*D) lane row in place (the
-  same in-place property the flat dense planes have, experiments/
-  dus_alias.py).
+Layout:
+- pool: (n_blocks, block_size, Hkv*D) per layer — a single-token write
+  touches one contiguous (Hkv*D,) row in place.
+- int8 pools carry scale pools (Hkv, n_blocks, block_size) f32: one scale
+  per (token, kv-head) vector, head-major, the layout the GPU paged-decode
+  kernel reads per kv head.
 - block_table: (B, max_blocks) int32 into the pool; lengths: (B,) valid
   token counts. Device-side ops are pure gathers/scatters on static
   shapes; block ALLOCATION is host-side scheduling (``BlockAllocator``),
   exactly like slot scheduling in the batching engine.
 
-Attention path: gather the sequence's blocks to a contiguous
-(B, max_blocks*block_size, Hkv*D) view and run the standard masked GQA
-attention with ``kv_lengths`` — table entries beyond a sequence's length
-point at freed/garbage blocks, so the length mask (not just causality)
-is load-bearing here. A Pallas kernel that DMAs blocks by scalar-prefetch
-indices (the structure flash_decode_attention already uses) is the
-optimization path once gather shows up in profiles.
+Attention path: one-token decode on the GPU runs the library paged-decode
+kernel (``tpu_llm.kernels.attention``), which reads pages through the
+block table. Everywhere else the sequence's blocks are gathered to a
+contiguous (B, max_blocks*block_size, Hkv*D) view and the standard masked
+GQA attention runs with ``kv_lengths`` — table entries beyond a
+sequence's length point at freed/garbage blocks, so the length mask (not
+just causality) is load-bearing there.
 """
 
 from __future__ import annotations
@@ -40,49 +41,22 @@ import jax.numpy as jnp
 from tpu_llm.ops.attention import gqa_attention
 
 
-def scale_pool_width(block_size: int) -> int:
-    """Lane-aligned scale-pool minor dim: block_size rounded up to 128
-    (see PagedKV docstring)."""
-    return -(-block_size // 128) * 128
-
-
-def scale_rows_per_block(n_kv_heads: int) -> int:
-    """Sublane-padded rows one block's scales occupy in the 2D pool:
-    Hkv rounded up to the f32 sublane tile (8). The pool is 2D
-    (n_blocks * HP, SP) rather than 3D (n_blocks, Hkv, SP) because the
-    3D form made XLA fight over layouts: the append scatter wanted
-    {2,1,0:T(4,128)} while the Pallas kernel's ANY operand wanted
-    {1,2,0:T(8,128)}, inserting TWO full-pool relayout copies per layer
-    per pool — 5.06 ms/step at TinyLlama b8/bs64, measured
-    (experiments/r3_int8_step_trace.py, r3_scale_layout.py: 24 -> 2 HLO
-    copies). 2D row-major has one sane layout for both, and the padding
-    costs nothing the 3D tile padding wasn't already paying."""
-    return -(-n_kv_heads // 8) * 8
-
-
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class PagedKV:
     """One layer's paged KV state (a pytree; flows through jit/scan).
 
     int8 pools (``k_scale``/``v_scale`` not None) store one f32 scale
-    per (token, kv-head) vector in 2D row-major pools
-    (n_blocks * HP, SP): block b's scales live in rows
-    [b*HP, b*HP + Hkv), HP = ``scale_rows_per_block`` (Hkv padded to the
-    f32 sublane tile — see that function's docstring for why 2D).
+    per (token, kv-head) vector in (Hkv, n_blocks, block_size) pools.
     Attention applies the scales to the score matrix, never
     dequantizing the plane — the same factorization as the flat dense
-    QuantKV. SP = block_size rounded up to 128 (``scale_pool_width``):
-    the paged decode kernel DMAs whole (HP, SP) scale blocks from ANY
-    memory, and Mosaic requires the minor (lane) extent of a
-    manual-copy source to be tile-aligned; columns past block_size are
-    dead padding."""
+    QuantKV."""
 
     k_pool: jax.Array       # (n_blocks, block_size, Hkv*D)
     v_pool: jax.Array
     block_table: jax.Array  # (B, max_blocks) int32 pool indices
     lengths: jax.Array      # (B,) int32 valid token count per sequence
-    k_scale: Optional[jax.Array] = None   # (n_blocks*HP, SP) f32
+    k_scale: Optional[jax.Array] = None   # (Hkv, n_blocks, bs) f32
     v_scale: Optional[jax.Array] = None
 
     def tree_flatten(self):
@@ -114,10 +88,8 @@ class PagedKV:
             assert n_kv_heads, "int8 pools need n_kv_heads for scale planes"
         mk = lambda: jnp.zeros((n_blocks, block_size, kv_dim),
                                jnp.int8 if quant else dtype)
-        sc = (lambda: jnp.zeros(
-            (n_blocks * scale_rows_per_block(n_kv_heads),
-             scale_pool_width(block_size)),
-            jnp.float32)) if quant else (lambda: None)
+        sc = (lambda: jnp.zeros((n_kv_heads, n_blocks, block_size),
+                                jnp.float32)) if quant else (lambda: None)
         return cls(
             k_pool=mk(), v_pool=mk(),
             block_table=jnp.zeros((batch, max_blocks), jnp.int32),
@@ -178,19 +150,14 @@ def paged_update_tokens(
 
         kq, ks = quantize_kv(k_new)          # (B,T,Hkv,D) int8, (B,T,Hkv)
         vq, vs = quantize_kv(v_new)
-        hkv = k_new.shape[2]
-        hp = kv.k_scale.shape[0] // kv.k_pool.shape[0]
-        # 2D scale pool: token (block, off) head h -> row block*HP+h,
-        # lane off (see scale_rows_per_block for why 2D)
-        rows = (block_ids[..., None] * hp
-                + jnp.arange(hkv, dtype=jnp.int32))      # (B, T, Hkv)
-        cols = offs[..., None]                            # (B, T, 1)
+        heads = jnp.arange(k_new.shape[2], dtype=jnp.int32)
+        at = (heads, block_ids[..., None], offs[..., None])   # (B, T, Hkv)
         return PagedKV(
             kv.k_pool.at[block_ids, offs].set(kq.reshape(B, T, kvd)),
             kv.v_pool.at[block_ids, offs].set(vq.reshape(B, T, kvd)),
             kv.block_table, lengths,
-            kv.k_scale.at[rows, cols].set(ks),
-            kv.v_scale.at[rows, cols].set(vs),
+            kv.k_scale.at[at].set(ks),
+            kv.v_scale.at[at].set(vs),
         )
 
     kf = k_new.reshape(B, T, kvd).astype(kv.k_pool.dtype)
@@ -200,13 +167,12 @@ def paged_update_tokens(
     return PagedKV(k_pool, v_pool, kv.block_table, lengths)
 
 
-def paged_gather(kv: PagedKV, n_kv_heads: Optional[int] = None):
+def paged_gather(kv: PagedKV):
     """Materialize each sequence's logical KV view:
     (B, max_blocks*block_size, Hkv*D) — for int8 pools, a flat-layout
-    QuantKV pair (scales gathered to kv-head-major (B, Hkv, MB*bs);
-    ``n_kv_heads`` is required to slice the sublane-padded 2D scale
-    pool). Entries past ``lengths`` are whatever the mapped (possibly
-    garbage) blocks hold — callers MUST mask with ``lengths``."""
+    QuantKV pair (scales gathered to kv-head-major (B, Hkv, MB*bs)).
+    Entries past ``lengths`` are whatever the mapped (possibly garbage)
+    blocks hold — callers MUST mask with ``lengths``."""
     k = jnp.take(kv.k_pool, kv.block_table, axis=0)   # (B, MB, bs, kvd)
     v = jnp.take(kv.v_pool, kv.block_table, axis=0)
     B, MB, bs, kvd = k.shape
@@ -215,14 +181,9 @@ def paged_gather(kv: PagedKV, n_kv_heads: Optional[int] = None):
         return k, v
     from tpu_llm.ops.kv_cache import QuantKV
 
-    assert n_kv_heads, "int8 paged_gather needs n_kv_heads"
-    hp = kv.k_scale.shape[0] // kv.k_pool.shape[0]
-
-    def scales(pool):                                  # (N*HP, SP)
-        s = pool.reshape(kv.k_pool.shape[0], hp, -1)   # free: row-major
-        s = jnp.take(s, kv.block_table, axis=0)        # (B, MB, HP, SP)
-        s = s[..., :n_kv_heads, :bs]
-        return s.transpose(0, 2, 1, 3).reshape(B, -1, MB * bs)
+    def scales(pool):                                  # (Hkv, N, bs)
+        s = jnp.take(pool, kv.block_table, axis=1)     # (Hkv, B, MB, bs)
+        return s.transpose(1, 0, 2, 3).reshape(B, -1, MB * bs)
 
     return (QuantKV(q=k, s=scales(kv.k_scale)),
             QuantKV(q=v, s=scales(kv.v_scale)))
@@ -232,71 +193,38 @@ def paged_gqa_attention(
     q: jax.Array,          # (B, T, H, D)
     kv: PagedKV,
     q_positions: jax.Array,  # (T,) or (B, T) absolute positions of the queries
-    offset=None,            # scalar int32 when all rows share a position
-                            # (prefill) — enables the flash prefill route
+    offset=None,            # scalar when all rows share a position (prefill)
 ) -> jax.Array:
     """Attention over the paged cache.
 
-    Decode (T=1) on TPU routes to the paged flash kernel: the block
-    table is scalar-prefetched and each resident pool block is DMA'd
-    exactly once — no materialized gather, O(pos) HBM traffic
-    (ops/flash_attention.paged_flash_decode_attention). Prefill and
-    non-TPU backends gather blocks to the flat logical view and run the
-    standard masked GQA attention; ``kv_lengths`` keeps garbage blocks
-    invisible there."""
-    import os
+    One-token decode on the GPU runs the library paged-decode kernel
+    (``kernels.select`` decides): pages are read through the block table,
+    O(pos) bytes per row, no materialized gather. Otherwise the blocks are
+    gathered to the flat logical view and the standard masked GQA
+    attention runs; ``kv_lengths`` keeps garbage blocks invisible, and
+    long prefill from position 0 takes cuDNN flash attention."""
+    from tpu_llm.kernels import attention as gpu_attention
+    from tpu_llm.kernels import select
 
     B, T, H, D = q.shape
-    use_kernel = (
-        T == 1
-        and jax.default_backend() not in ("cpu", "gpu")
-        and not os.environ.get("TPU_LLM_DISABLE_PALLAS")
-        and not os.environ.get("TPU_LLM_DISABLE_FLASH")
-    )
-    if use_kernel:
-        from tpu_llm.ops.flash_attention import (
-            paged_flash_decode_attention, paged_flash_decode_ok,
-            paged_flash_decode_q)
+    if select.paged_decode_attention(q, kv):
+        pos = jnp.broadcast_to(q_positions.reshape(-1), (B,))
+        return gpu_attention.paged_decode_attention(
+            q, kv.k_pool, kv.v_pool, kv.block_table, pos,
+            kv.k_scale, kv.v_scale)
 
-        if paged_flash_decode_ok(q, kv.k_pool, kv.block_size):
-            pos = q_positions.astype(jnp.int32).reshape(-1)
-            if pos.size == 1:
-                pos = jnp.broadcast_to(pos, (B,))
-            if kv.quantized:
-                return paged_flash_decode_q(
-                    q, kv.k_pool, kv.v_pool, kv.k_scale, kv.v_scale,
-                    kv.block_table, pos)
-            return paged_flash_decode_attention(
-                q, kv.k_pool, kv.v_pool, kv.block_table, pos)
-
-    kvd = kv.k_pool.shape[-1]
-    k, v = paged_gather(kv, n_kv_heads=kvd // D)
+    k, v = paged_gather(kv)
+    # causal masking makes the lengths mask redundant for prefill from
+    # position 0: every attended slot <= q_pos was written by this call
+    if offset is not None and select.prefill_attention(q, k, offset):
+        return gpu_attention.prefill_attention(q, k, v)
     if kv.quantized:
         # flat QuantKV pair — gqa_attention's int8 paths contract the
         # int8 plane directly with scales on the score matrix
         return gqa_attention(q, k, v, q_positions, kv_lengths=kv.lengths)
-    B, S, kvd = k.shape
+    S, kvd = k.shape[1], k.shape[2]
     k = k.reshape(B, S, kvd // D, D)
     v = v.reshape(B, S, kvd // D, D)
-
-    # long-prompt prefill: the einsum path materializes (B, T, H, S)
-    # scores over the gathered view — route through the flash kernel
-    # instead (same gate shape as models/llama._attend). Causal masking
-    # makes the lengths mask redundant here: every attended slot <=
-    # q_pos was freshly written by this call or an earlier one.
-    use_flash = (
-        T >= 256
-        and offset is not None
-        and jnp.ndim(offset) == 0
-        and jax.default_backend() not in ("cpu", "gpu")
-        and not os.environ.get("TPU_LLM_DISABLE_FLASH")
-        and not os.environ.get("TPU_LLM_DISABLE_PALLAS")
-        and T % 256 == 0 and S % 256 == 0 and D in (64, 128)
-    )
-    if use_flash:
-        from tpu_llm.ops.flash_attention import flash_gqa_attention
-
-        return flash_gqa_attention(q, k, v, jnp.asarray(offset, jnp.int32))
     return gqa_attention(q, k, v, q_positions, kv_lengths=kv.lengths)
 
 

@@ -1,22 +1,23 @@
 """Multi-host process bring-up (``jax.distributed``).
 
 The reference has no communication backend at all (SURVEY.md §2.3: no
-MPI/NCCL/sockets — single process by construction). The TPU-native
-equivalent is JAX's distributed runtime: every host in a multi-host slice
+MPI/NCCL/sockets — single process by construction). The JAX
+equivalent is its distributed runtime: every host of a multi-host run
 runs the same program, calls ``jax.distributed.initialize`` before any
 device use, and then sees the GLOBAL device set — after which the mesh /
 pjit / collective machinery in this package works unchanged (GSPMD
-compiles the same program on every host; XLA runs collectives over
-ICI within a slice and DCN across slices).
+compiles the same program on every host; XLA hands the collectives to
+NCCL on GPUs).
 
 Bring-up is configured by flags or environment:
 
 - ``TPU_LLM_COORDINATOR`` (host:port of process 0),
 - ``TPU_LLM_NUM_PROCESSES``, ``TPU_LLM_PROCESS_ID``.
 
-On Cloud TPU these are auto-detected by JAX, so ``init_distributed()``
-with no arguments is also correct there: it calls initialize() whenever
-it can determine a multi-process world, and is a no-op otherwise.
+Where a cluster environment lets JAX auto-detect them,
+``init_distributed()`` with no arguments is also correct: it calls
+initialize() whenever it can determine a multi-process world, and is a
+no-op otherwise.
 
 ``--selftest`` (python -m tpu_llm.parallel.distributed --selftest ...)
 runs one rank of a localhost two-process decode-parity check: a dp-sharded
@@ -51,13 +52,12 @@ def init_distributed(
 
     if coordinator is None and num_processes is None:
         # Auto-detect: when the environment carries a multi-host
-        # coordinator signal (Cloud TPU pod metadata / JAX service env),
+        # coordinator signal (cluster metadata / JAX service env),
         # run the no-arg initialize() that reads it; otherwise stay a
         # single-process world. Probing jax.process_count() alone is NOT
         # enough — without initialize() each host reports itself as a
         # standalone world.
-        hints = ("JAX_COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS",
-                 "COORDINATOR_ADDRESS", "TPU_WORKER_ID")
+        hints = ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS")
         if any(os.environ.get(h) for h in hints):
             try:
                 jax.distributed.initialize()

@@ -25,14 +25,14 @@ def make_mesh(
     devices: Optional[Sequence] = None,
 ) -> Mesh:
     """Build a (pipe, data, expert, model) mesh. ``model`` defaults to all
-    remaining devices. model-axis devices are placed innermost (adjacent
-    device ids) so TP collectives ride the fastest ICI links; pipe is
-    outermost — stage handoffs are the rarest, cheapest collective, so they
-    can cross hosts (DCN) while TP stays on ICI.
+    remaining devices. The GPUs of one host are joined all to all by
+    NVLink, so the mesh follows the algorithm alone: devices are taken in
+    id order, model axis innermost, pipe outermost — stage handoffs are
+    the rarest collective, so across hosts they are the ones that cross
+    the network while TP stays inside a host.
 
-    ``expert`` is the reserved expert-parallel axis (SURVEY.md §2.3 EP row:
-    no MoE models in the capability set, so the axis exists for sharding
-    specs to name but defaults to size 1 — a size-1 axis is free)."""
+    ``expert`` is the expert-parallel axis for the MoE layers' stacked
+    experts (size 1 by default — a size-1 axis is free)."""
     devs = list(devices if devices is not None else jax.devices())
     if model is None:
         model = len(devs) // (data * pipe * expert)

@@ -149,8 +149,8 @@ def cp_decode_attention(
     Unlike prefill, decode needs no ring: each device scores the query
     against its RESIDENT shard and the partial softmax states combine with
     two collectives (pmax of the score max, psum of numerator/denominator)
-    — the factorization flash_decode_attention uses per-shard
-    (ops/flash_attention.py), lifted across devices. KV shards never move;
+    — the split-K factorization of flash decoding
+    (kernels/attention.py), lifted across devices. KV shards never move;
     per-device cache stays O(S / n_devices), removing the reference's
     single-memory context cap (llama2.f90:311-313)."""
     B, T, H, D = q.shape

@@ -9,20 +9,17 @@ partitions. Two constructions, chosen per engine:
   ``adapter.apply``/``lm_head`` run the generic model forward INSIDE
   ``jax.shard_map`` with Megatron col/row-parallel params, explicit psums
   after wo/w2 (``models.llama.forward(reduce_fn=...)``) and a tiled
-  all-gather for the vocab-sharded classifier. Every projection kernel —
-  including the fused quantized Pallas matmuls — sees its LOCAL shard
-  shape and runs exactly as it does single-chip (the construction
+  all-gather for the vocab-sharded classifier. Every projection and
+  attention kernel that ``kernels.select`` picks sees its LOCAL shard
+  shape and runs exactly as it does on one device (the construction
   ``parallel/tp_decode.py`` proves, applied to the serving steps).
-- **GSPMD fallback** (paged pools, int8 KV, MoE/EP): params/state under
-  NamedShardings and XLA partitions the steps. Pallas kernels don't
-  auto-partition under GSPMD, so these engines' jitted bodies trace
-  under the SCOPED ``linear.pallas_disabled()`` context — not the old
-  process-wide TPU_LLM_DISABLE_PALLAS env mutation, which silently
-  slowed every later single-chip engine in the process (r4 advisor).
+- **GSPMD path** (paged pools, int8 KV, MoE/EP): params/state under
+  NamedShardings and XLA partitions the steps. GSPMD does not partition
+  a Pallas call, so these engines' jitted bodies trace under the scoped
+  ``kernels.select.kernels_disabled()`` context and keep to plain ops.
 
 The reference has no serving stack at all (single-stream CLI,
-llama2.f90:319-428); multi-chip serving is a capability the TPU design
-adds on top.
+llama2.f90:319-428); multi-device serving is a capability added on top.
 """
 
 from __future__ import annotations
@@ -160,16 +157,15 @@ def _tp_adapter_eligible(eng: Any, cfg: LlamaConfig) -> bool:
     return "wqkv" not in lkeys and "w13" not in lkeys
 
 
-def _wrap_scoped_pallas_off(eng: Any) -> None:
-    """Route the engine's jitted bodies through the SCOPED Pallas disable
-    (GSPMD fallback: Pallas calls don't partition under auto-sharding).
-    The flag only matters during the trace; compiled calls are
-    unaffected."""
-    from tpu_llm.quant.linear import pallas_disabled
+def _wrap_kernels_off(eng: Any) -> None:
+    """Route the engine's jitted bodies through the scoped kernel disable
+    (GSPMD path: Pallas calls don't partition under auto-sharding). The
+    flag only matters during the trace; compiled calls are unaffected."""
+    from tpu_llm.kernels.select import kernels_disabled
 
     def wrap(fn):
         def wrapped(*a, **k):
-            with pallas_disabled():
+            with kernels_disabled():
                 return fn(*a, **k)
         return wrapped
 
@@ -259,11 +255,11 @@ def shard_engine(eng: Any, cfg: LlamaConfig, mesh: Mesh,
         eng._draft = (dparams, dadapter)
 
     if not paged and _tp_adapter_eligible(eng, cfg):
-        # per-shard Pallas path: swap the adapter before the first trace
+        # per-shard kernel path: swap the adapter before the first trace
         old = eng.adapter
         eng.adapter = make_tp_llama_adapter(
             cfg, mesh, cache_dtype=state["k"].dtype, bos_id=old.bos_id)
     else:
-        _wrap_scoped_pallas_off(eng)
+        _wrap_kernels_off(eng)
     eng.mesh = mesh
     return eng

@@ -116,16 +116,16 @@ def unstack_param_specs(specs: Dict[str, Any], n_layers: int) -> Dict[str, Any]:
 def llama_paged_state_spec(n_layers: int, quantized: bool = False) -> Dict[str, Any]:
     """Spec pytree for PagedEngine.state: per-layer (n_blocks, bs, Hkv*D)
     pools sharded on the head-dim axis over "model" (the paged-TP dryrun
-    leg's layout); int8 scale pools replicated (rows interleave blocks and
-    heads — small, and the quantize/dequantize runs per shard anyway);
+    leg's layout); int8 (Hkv, n_blocks, bs) scale pools replicated (small,
+    and the quantize/dequantize runs per shard anyway);
     block table + lengths replicated host-controlled metadata."""
     pool = P(None, None, "model")
-    rep2 = P(None, None)
+    rep3 = P(None, None, None)
     return {
         "k": [pool] * n_layers,
         "v": [pool] * n_layers,
-        "ks": [rep2] * n_layers if quantized else None,
-        "vs": [rep2] * n_layers if quantized else None,
+        "ks": [rep3] * n_layers if quantized else None,
+        "vs": [rep3] * n_layers if quantized else None,
         "table": P(None, None),
         "lengths": P(None),
     }

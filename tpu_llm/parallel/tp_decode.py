@@ -1,15 +1,14 @@
 """Explicit tensor-parallel decode step (shard_map).
 
 The GSPMD path (parallel/sharding.py) lets XLA partition the stacked-scan
-forward — correct, but it keeps the lax.scan layer loop whose per-layer
-slice copies cost ~28% of step time (models/llama.py:86-93), and
-``pallas_call`` under GSPMD auto-partitioning is not guaranteed to stay
-on the fused-kernel path. This module is the serving-grade alternative:
+forward — correct, but it keeps the lax.scan layer loop with its
+per-layer weight slice copies, and GSPMD does not partition a
+``pallas_call``. This module is the serving-grade alternative:
 
 - params are UNSTACKED per-layer buffers (no scan, no slice copies);
-- the whole decode step runs under ``shard_map``, so every projection
-  kernel — including the quantized Pallas matmul — sees its LOCAL shard
-  shape and runs exactly as it does single-chip;
+- the whole decode step runs under ``shard_map``, so every kernel that
+  ``kernels.select`` picks — the quantized matmul, decode attention —
+  sees its LOCAL shard shape and runs exactly as it does on one device;
 - collectives are explicit and Megatron-placed: one psum after ``wo``,
   one after ``w2`` (llama2.f90:603-620's two row-parallel matvecs), and
   one tiled all-gather for the vocab-sharded classifier.
@@ -37,7 +36,8 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from tpu_llm.config import LlamaConfig
-from tpu_llm.ops.attention import gqa_attention, update_kv_cache
+from tpu_llm.models.llama import _attend
+from tpu_llm.ops.attention import update_kv_cache
 from tpu_llm.ops.norms import rmsnorm
 from tpu_llm.ops.activations import silu
 from tpu_llm.ops.rope import apply_rope
@@ -163,7 +163,7 @@ def make_tp_decode_step(cfg: LlamaConfig, mesh: Mesh, fused: bool = False,
             kc, vc = update_kv_cache(cache_k[i], cache_v[i], k, v, pos)
             new_k.append(kc)
             new_v.append(vc)
-            attn = gqa_attention(q, kc, vc, positions)            # local heads
+            attn = _attend(q, kc, vc, positions, pos)             # local heads
             attn_out = matmul(attn.reshape(B, 1, Hl * D), lp["wo"])
             attn_out = jax.lax.psum(attn_out, "model")            # row-parallel
             x = x + attn_out

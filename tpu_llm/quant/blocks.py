@@ -12,8 +12,9 @@ Layouts follow the GGML spec the reference targets (Q4_0 constants
 - Q5_1: [f16 d][f16 m][u32 qh][16 bytes qs]; value = q5 * d + m.
 - Q8_0: [f16 d][32 int8]; value = q * d.
 
-These run at load/convert time only; on-device dequant is fused into the
-Pallas matmul kernels (tpu_llm/quant/pallas_matmul.py).
+These run at load/convert time only; on the device, weights stay packed
+as QTensors (tpu_llm/quant/qtensor.py) and dequantize inside the matmul
+path (tpu_llm/quant/linear.py).
 """
 
 from __future__ import annotations

@@ -1,85 +1,50 @@
 """Linear-layer dispatch: dense jnp arrays or packed QTensors.
 
-``matmul(x, w)`` is the single projection primitive the models call; it
-routes QTensors to the fused Pallas kernel on TPU and to an XLA
-dequant+dot fallback elsewhere (CPU tests, odd shapes). Dense weights go
-straight to the MXU with f32 accumulation.
+``matmul(x, w)`` is the single projection primitive the models call.
+QTensors go to the fused GPU dequant-matmul where ``kernels.select``
+picks it, and otherwise to XLA: dequantize, then one dot with f32
+accumulation.
+
+Precision: float32 activations ask for ``Precision.HIGHEST`` so that
+``--dtype f32`` is a true float32 product on GPUs, whose default for f32
+dots is TF32 (about three decimal digits). bf16 activations take the
+default, which is one bf16 pass with f32 accumulation.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Union
 
 import jax
 import jax.numpy as jnp
 
+from tpu_llm.kernels import select
 from tpu_llm.quant.qtensor import QTensor, dequantize
-from tpu_llm.quant.pallas_matmul import qmatmul_pallas, pallas_tiles_ok
 
 Weight = Union[jax.Array, QTensor]
 
-# scoped (per-trace) Pallas disable: engines whose jitted bodies must
-# stay on XLA-partitionable ops (GSPMD mesh serving) wrap their traces in
-# ``pallas_disabled()`` instead of mutating TPU_LLM_DISABLE_PALLAS
-# process-wide (which silently slowed every LATER single-chip engine in
-# the same process — r4 advisor finding). The flag only matters while a
-# jit trace runs; compiled steps never re-enter Python.
-_scoped_disable = 0
+
+def _dot(x, w):
+    precision = (jax.lax.Precision.HIGHEST
+                 if jnp.result_type(x, w) == jnp.float32 else None)
+    return jnp.matmul(x, w, precision=precision,
+                      preferred_element_type=jnp.float32)
 
 
-class pallas_disabled:
-    def __enter__(self):
-        global _scoped_disable
-        _scoped_disable += 1
-        return self
-
-    def __exit__(self, *exc):
-        global _scoped_disable
-        _scoped_disable -= 1
-        return False
-
-
-def pallas_scope_disabled() -> bool:
-    return _scoped_disable > 0
-
-
-def _use_pallas() -> bool:
-    if os.environ.get("TPU_LLM_DISABLE_PALLAS") or _scoped_disable:
-        return False
-    return jax.default_backend() not in ("cpu", "gpu")
-
-
-def matmul(x: jax.Array, w: Weight, out_dtype=None, row_scale=None) -> jax.Array:
+def matmul(x: jax.Array, w: Weight, out_dtype=None) -> jax.Array:
     """x: (..., K) @ w: (K, N) -> (..., N), accumulating in f32.
 
     ``out_dtype`` defaults to x.dtype; pass jnp.float32 to keep the f32
-    accumulator un-rounded (e.g. the classifier's logits).
-
-    ``row_scale`` (K,) multiplies x elementwise first — the folded
-    rmsnorm weight. On the fused-kernel path it streams as a pipelined
-    kernel operand; elsewhere it is the ordinary broadcast multiply the
-    un-folded model would have done inside the norm."""
+    accumulator un-rounded (e.g. the classifier's logits)."""
     out_dtype = out_dtype or x.dtype
     if isinstance(w, QTensor):
-        Kq, K = w.shape[-2], x.shape[-1]
-        if Kq > K:
-            # K-padded QTensor (qtensor.pad_k): zero scale rows make the
-            # padded region contribute exactly 0 — pad x to match
-            x = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, Kq - K)])
-            if row_scale is not None:
-                row_scale = jnp.pad(row_scale, (0, Kq - K))
         rows = 1
         for d in x.shape[:-1]:
             rows *= d
-        if _use_pallas() and pallas_tiles_ok(
-                w, rows, x_itemsize=float(jnp.dtype(x.dtype).itemsize)):
-            return qmatmul_pallas(x, w, out_dtype=out_dtype,
-                                  row_scale=row_scale)
-        if row_scale is not None:
-            x = (x.astype(jnp.float32) * row_scale).astype(x.dtype)
+        if select.qmatmul(x.dtype, rows, w):
+            from tpu_llm.kernels.qmatmul import qmatmul
+
+            return qmatmul(x, w.q, w.scales).astype(out_dtype)
         wd = dequantize(w, dtype=jnp.float32 if x.dtype == jnp.float32 else jnp.bfloat16)
-        return jnp.matmul(x, wd, preferred_element_type=jnp.float32).astype(out_dtype)
-    if row_scale is not None:
-        x = (x.astype(jnp.float32) * row_scale).astype(x.dtype)
-    return jnp.matmul(x, w, preferred_element_type=jnp.float32).astype(out_dtype)
+        return _dot(x, wd).astype(out_dtype)
+    return _dot(x, w).astype(out_dtype)

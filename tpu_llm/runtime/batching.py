@@ -1,14 +1,14 @@
 """Continuous batching engine (iteration-level scheduling).
 
 The reference is strictly single-stream (one sequence, one token at a
-time, llama2.f90:379-402). For TPU throughput, decode must be batched —
+time, llama2.f90:379-402). For accelerator throughput, decode must be batched —
 but requests arrive and finish at different times, so the batch is a set
 of SLOTS: each step runs ONE jitted decode for all slots at their own
 positions (vector ``offset``), and the host scheduler admits/retires
 requests between steps (Orca-style iteration-level scheduling).
 
 Admission runs a DEDICATED PREFILL: the new request's whole prompt goes
-through one jitted forward on a fresh batch-1 state slice (big MXU
+through one jitted forward on a fresh batch-1 state slice (large
 matmuls, bucketed padding), which is then scattered into the slot's rows
 of the batch state — TTFT for a P-token prompt is one prefill pass, not P
 batched decode steps. The prefill also resets the slot's state rows
@@ -341,7 +341,7 @@ class BatchEngine:
             lambda a: jnp.zeros_like(
                 jax.lax.slice_in_dim(a, 0, 1, axis=ax)), state)
         _, sub = adapter.apply(params, tokens=tokens, state=fresh,
-                               offset=jnp.int32(0), length=last_idx + 1)
+                               offset=np.int32(0), length=last_idx + 1)
         return jax.tree_util.tree_map(
             lambda a, b: jax.lax.dynamic_update_slice_in_dim(
                 a, b.astype(a.dtype), slot, axis=ax), state, sub)
@@ -358,7 +358,7 @@ class BatchEngine:
                 jax.lax.slice_in_dim(a, 0, 1, axis=ax)), state
         )
         hidden, sub = self.adapter.apply(
-            params, tokens=tokens, state=fresh, offset=jnp.int32(0),
+            params, tokens=tokens, state=fresh, offset=np.int32(0),
             length=last_idx + 1,
         )
         last = jax.lax.dynamic_slice_in_dim(hidden, last_idx, 1, axis=1)

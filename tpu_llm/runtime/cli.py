@@ -7,7 +7,7 @@ echo), -v/--verbose, --ak (legacy packed format). Defaults match
 inference-time / tokens-per-second / per-phase timing report
 (llama2.f90:403-410).
 
-TPU-native extensions: --dtype f32|bf16|native (native keeps f16/Q4_0
+Extensions: --dtype f32|bf16|native (native keeps f16/Q4_0
 packed), --seed, --scan (all-on-device decode loop), --max-seq.
 """
 
@@ -67,8 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fold-norms", action="store_true",
                    help="fold rmsnorm weights into the projections "
                         "(quantized weights REQUANTIZE — one extra "
-                        "rounding; kills the per-layer norm-read latency, "
-                        "+8%% at 7B scale)")
+                        "rounding; removes the per-layer norm-weight "
+                        "reads)")
     p.add_argument("--lora", default=None, metavar="GGUF",
                    help="LoRA adapter GGUF (llama.cpp convert_lora format) "
                         "merged into the base weights at load")
@@ -91,7 +91,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="after generation, measure and print the reference's "
                         "five per-token timing buckets (qkv/rope/attention/"
                         "ffn/classifier, llama2.f90:403-410) — each bucket "
-                        "slope-timed on device at the run's decode shapes")
+                        "timed on device at the run's decode shapes")
     p.add_argument("--profile", default="", metavar="DIR",
                    help="capture an XProf trace of the run into DIR; the "
                         "reference's five timing buckets (qkv/rope/attention/"
@@ -104,13 +104,12 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     # persistent XLA compile cache: first run pays the jit compile,
-    # every later run starts in seconds (TPU_LLM_NO_COMPILE_CACHE=1 opts out)
+    # every later run starts in seconds
     import os
 
-    if not os.environ.get("TPU_LLM_NO_COMPILE_CACHE"):
-        from tpu_llm.runtime.compile_cache import enable_compile_cache
+    from tpu_llm.runtime.compile_cache import enable_compile_cache
 
-        enable_compile_cache()
+    enable_compile_cache()
 
     # multi-host bring-up must precede any device use
     from tpu_llm.parallel.distributed import init_distributed

@@ -17,10 +17,9 @@ import time
 def main(argv=None) -> int:
     import os
 
-    if not os.environ.get("TPU_LLM_NO_COMPILE_CACHE"):
-        from tpu_llm.runtime.compile_cache import enable_compile_cache
+    from tpu_llm.runtime.compile_cache import enable_compile_cache
 
-        enable_compile_cache()
+    enable_compile_cache()
     p = argparse.ArgumentParser(prog="llm-ssm", description=__doc__)
     p.add_argument("-m", "--model", default="model.bin")
     p.add_argument("-p", "--prompt", default="")
@@ -33,7 +32,7 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
                    help="f32 = reference-parity numerics (default); bf16 = "
-                        "weight-only cast, ~1.8x decode throughput")
+                        "weight-only cast (half the weight bytes)")
     p.add_argument("--scan", action="store_true")
     p.add_argument("--convert", metavar="HF_DIR",
                    help="convert a HF Mamba dir to packed format at -m, then exit")

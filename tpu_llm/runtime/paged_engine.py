@@ -46,8 +46,6 @@ from tpu_llm.ops.paged_kv import (
     PrefixCache,
     paged_gqa_attention,
     paged_update_tokens,
-    scale_pool_width,
-    scale_rows_per_block,
 )
 from tpu_llm.runtime.batching import BatchEngine, Request, _Slot
 from tpu_llm.ops.sampling import filtered_sample
@@ -98,20 +96,6 @@ class PagedEngine(BatchEngine):
         self.cfg = cfg
         self.batch = batch
         quantized = cache_dtype == "int8" or cache_dtype == jnp.int8
-        if quantized and block_size < 32:
-            # int8 tiles are 32 sublanes: a <32-row block is PADDED to 32
-            # in HBM (no capacity win) and falls off the paged int8 decode
-            # kernel (full-gather fallback, ~5x slower). Bump to 32 and
-            # shrink the pool so the HBM budget the caller asked for holds.
-            import warnings
-
-            new_blocks = max(1, n_blocks * block_size // 32)
-            warnings.warn(
-                f"int8 pools: block_size {block_size} padded to 32-row "
-                f"tiles anyway; using block_size=32, n_blocks "
-                f"{n_blocks}->{new_blocks} (same HBM budget)",
-                stacklevel=2)
-            block_size, n_blocks = 32, new_blocks
         self.block_size = block_size
         self.n_layers = len(params["layers"])
         mb = ((max_seq or cfg.seq_len) + block_size - 1) // block_size
@@ -176,17 +160,16 @@ class PagedEngine(BatchEngine):
     def _fresh_state(self) -> Dict[str, Any]:
         kvd = self.cfg.kv_dim
         n_blocks, block_size = self._n_blocks, self.block_size
-        srows = n_blocks * scale_rows_per_block(self.cfg.n_kv_heads)
-        swidth = scale_pool_width(block_size)
+        scale_shape = (self.cfg.n_kv_heads, n_blocks, block_size)
         return {
             "k": [jnp.zeros((n_blocks, block_size, kvd), self._pool_dtype)
                   for _ in range(self.n_layers)],
             "v": [jnp.zeros((n_blocks, block_size, kvd), self._pool_dtype)
                   for _ in range(self.n_layers)],
-            "ks": [jnp.zeros((srows, swidth), jnp.float32)
+            "ks": [jnp.zeros(scale_shape, jnp.float32)
                    for _ in range(self.n_layers)]
             if self.quantized else None,
-            "vs": [jnp.zeros((srows, swidth), jnp.float32)
+            "vs": [jnp.zeros(scale_shape, jnp.float32)
                    for _ in range(self.n_layers)]
             if self.quantized else None,
             "table": jnp.zeros((self.batch, self.max_blocks), jnp.int32),

@@ -51,7 +51,7 @@ def compute_ppl(
     def window_nll(params, tokens, state, n_valid):
         # tokens (1, W); score predictions for positions 1..n_valid-1
         hidden, state = adapter.apply(
-            params, tokens=tokens, state=state, offset=jnp.int32(0),
+            params, tokens=tokens, state=state, offset=np.int32(0),
             length=n_valid,
         )
         logits = adapter.lm_head(params, hidden=hidden)  # (1, W, V)
@@ -189,7 +189,7 @@ def dtype_table(
             toks = jnp.asarray([list(ids[:w])], jnp.int32)
             state = adapter.init_state(1, w)
             hidden, _ = adapter.apply(params, tokens=toks, state=state,
-                                      offset=jnp.int32(0), length=jnp.int32(w))
+                                      offset=np.int32(0), length=jnp.int32(w))
             logits = np.asarray(adapter.lm_head(params, hidden=hidden))
             if ref_logits is None:
                 ref_logits = logits

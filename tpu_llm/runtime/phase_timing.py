@@ -6,8 +6,8 @@ buckets updated at :538 qkv, :561 rope, :599 attention, :622 wo+ffn, :638
 classifier). Under ``jax.jit`` the phases of one step fuse and overlap, so
 they cannot be timed in situ without serializing the program — instead
 each bucket is measured as its OWN jitted loop at the real decode shapes
-with the real weights, all layers per step, slope-timed to cancel the
-host round-trip (tpu_llm.runtime.timing).
+with the real weights, all layers per step, timed after a warm-up run
+with ``block_until_ready``.
 
 Semantics match the reference's report: per-token cost of each phase
 summed over layers, in ms. Caveat (inherent to any decomposition of a
@@ -135,19 +135,15 @@ def measure_phase_times(
     batch: int = 1,
     pos: int = 128,
     max_seq: int = 256,
-    n1: int = 16,
-    n2: int = 144,
-    int4: bool = False,
+    steps: int = 128,
 ) -> Dict[str, float]:
     """Per-token ms for each of the reference's five buckets, measured on
     device at decode shapes (B x 1) with the loaded weights, attention at
-    cache position ``pos``. ``int4=True`` converts q4_0 QTensors to int4
-    planes inside the program (the scan engine's fast path). Returns
+    cache position ``pos``, each over ``steps`` steps. Returns
     {bucket: ms_per_token}."""
-    import numpy as np
+    import time
 
     from tpu_llm.models import llama as M
-    from tpu_llm.runtime.timing import slope_time_s
 
     pos = min(pos, max_seq - 2)
     x0 = jnp.ones((batch, 1, cfg.dim), params["tok_emb"].dtype) * 0.02
@@ -157,32 +153,18 @@ def measure_phase_times(
 
     out = {}
     for name, body in _phase_bodies(cfg, batch, pos):
-        # ONE compile per bucket: the step count is a traced fori_loop
-        # bound (while_loop lowering), so both slope-timing lengths share
-        # the same executable
         @jax.jit
         def run_n(params, carry, n, body=body):
-            if int4:
-                from tpu_llm.quant.convert_params import unpack_params_int4
-
-                params = unpack_params_int4(params)
             layers = unstack_layers(params)["layers"]
             return jax.lax.fori_loop(
                 0, n, lambda _, c: body(params, layers, c), carry)
 
         init_carry = (x0, caches0) if name == "attention" else x0
-
-        def make(n, run_n=run_n, init_carry=init_carry):
-            n_dev = jnp.int32(n)
-
-            def thunk():
-                got = run_n(params, init_carry, n_dev)
-                leaf = jax.tree_util.tree_leaves(got)[0]
-                np.asarray(jax.device_get(leaf.reshape(-1)[0]))  # sync by fetch
-
-            return thunk
-
-        out[name] = slope_time_s(make, n1, n2) * 1000.0
+        n = jnp.int32(steps)
+        jax.block_until_ready(run_n(params, init_carry, n))   # compile, warm
+        t0 = time.perf_counter()
+        jax.block_until_ready(run_n(params, init_carry, n))
+        out[name] = (time.perf_counter() - t0) / steps * 1000.0
     return out
 
 

@@ -45,8 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--paged", action="store_true",
                    help="paged KV pool + prefix caching (llama only)")
     p.add_argument("--block-size", type=int, default=None,
-                   help="paged block size (default 16; 32 for int8 pools "
-                        "— the int8 decode kernel needs 32-row tiles)")
+                   help="paged block size (default 16; 32 for int8 pools)")
     p.add_argument("--n-blocks", type=int, default=None,
                    help="paged pool size (default: batch x max_seq worth)")
     p.add_argument("--draft", default=None, metavar="GGUF",
@@ -205,10 +204,9 @@ def make_engine(args, params, cfg, tokenizer, max_seq, is_mamba=False):
 def main(argv=None) -> int:
     import os
 
-    if not os.environ.get("TPU_LLM_NO_COMPILE_CACHE"):
-        from tpu_llm.runtime.compile_cache import enable_compile_cache
+    from tpu_llm.runtime.compile_cache import enable_compile_cache
 
-        enable_compile_cache()
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
 
     prompts = list(args.prompt)

@@ -195,10 +195,11 @@ class Embedder:
 
     def _impl(self, params, toks, length):
         import jax.numpy as jnp
+        import numpy as np
 
         state = self.adapter.init_state(1, toks.shape[1])
         hidden, _ = self.adapter.apply(
-            params, tokens=toks, state=state, offset=jnp.int32(0),
+            params, tokens=toks, state=state, offset=np.int32(0),
             length=length)
         mask = (jnp.arange(toks.shape[1]) < length)[None, :, None]
         pooled = jnp.sum(hidden.astype(jnp.float32) * mask, axis=1) / length
@@ -922,10 +923,9 @@ def serve(engine, tokenizer, host: str, port: int, *, max_queue: int = 256,
 def main(argv=None) -> int:
     import os
 
-    if not os.environ.get("TPU_LLM_NO_COMPILE_CACHE"):
-        from tpu_llm.runtime.compile_cache import enable_compile_cache
+    from tpu_llm.runtime.compile_cache import enable_compile_cache
 
-        enable_compile_cache()
+    enable_compile_cache()
     args = build_parser().parse_args(argv)
     from tpu_llm.runtime.serve_cli import _load, make_engine
 
